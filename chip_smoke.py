@@ -9,14 +9,21 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
   2. build    nvcc builds every kernel of hmmufotu_tpu_torch/csrc;
   3. fixture  the 70_otus DB (GTR+dGamma4) built with the port's builder;
   4. kernels  K1 (banded Viterbi, narrow and wide launches, 3 and 5
-              region slots), K2 (estimate) and K3 (SEP optimize, 1 and 4
-              Gamma rates) on inputs captured from the main path at the
-              benchmark's shapes, each held against its plain PyTorch
-              version on the same CUDA tensors;
+              region slots), K2 (estimate), K3 (SEP optimize, 1 and 4
+              Gamma rates), K4 (choice-plane Viterbi, and the host walk
+              over its planes against K1's tracebacks) and K5 (single-
+              branch fixed point) on inputs captured from the two paths
+              at the benchmark's shapes, each held against its plain
+              PyTorch version on the same CUDA tensors;
   5. assign   1,024 simulated reads through pipeline.assign_stream on the
               card, every kernel launch counter checked, alignments and
               best placements compared with a CPU run of the port;
-  6. scale    a synthetic DB of 16,384 leaves x 1,600 columns (GTR+dGamma4,
+  6. modes    the second path: 2,048 reads through assign_stream with the
+              host-traceback aligner (K4) and the fixed-point placer
+              (K5), launch counters checked, compared read for read with
+              the main path; 64 reads each through the scan aligner and
+              through K3 fed by the tensor-op estimate;
+  7. scale    a synthetic DB of 16,384 leaves x 1,600 columns (GTR+dGamma4,
               leaf sequences evolved down the tree), 8,192 simulated
               250 bp reads in batches of 2,048: reads/s, per-kernel
               launches and CUDA-event time, peak device memory, and 64
@@ -50,6 +57,7 @@ N_SCALE_READS = 8192
 SCALE_LEAVES = 16384
 SCALE_COLS = 1600
 N_SCALE_CPU_READS = 64
+N_MODE_READS = 64       # reads of the short scan / tensor-op-estimate runs
 
 # device peaks for the bound (H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -66,6 +74,10 @@ K2_OPS_PER_SITE = 3 * CONV_OPS + DOT_OPS + 16
 # relative/absolute tolerances of tests/test_pipeline.py:210-216
 BRANCH_ATOL = 2e-3
 LL_RTOL, LL_ATOL = 1e-4, 0.5
+# K5's p against its plain version: the kernel sums a lane's sites in a
+# warp butterfly, the plain version in torch's order, and a lane may stop
+# one step apart inside BRANCH_EPS = 1e-5 of its limit
+FP_ATOL, FP_RTOL = 1e-6, 1e-5
 
 
 def log(*a):
@@ -223,13 +235,15 @@ def load_db(prefix: str):
 # driving the main path
 # ---------------------------------------------------------------------------
 
-def run_assign(db, reads, device, batch):
-    """pipeline.assign_stream over `reads`; returns (alignments, best)."""
+def run_assign(db, reads, device, batch, aligner_kw=None, placer_kw=None):
+    """pipeline.assign_stream over `reads`; returns (alignments, best).
+    aligner_kw/placer_kw choose the aligner's and the placer's mode."""
     from hmmufotu_tpu_torch import pipeline as pl
     from hmmufotu_tpu_torch.hmm import NGCL, ViterbiAligner
     from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
-    aligner = ViterbiAligner(db.hmm, device=device)
-    placer = DevicePlacer(db.ptu, window=512, device=device)
+    aligner = ViterbiAligner(db.hmm, device=device, **(aligner_kw or {}))
+    placer = DevicePlacer(db.ptu, window=512, device=device,
+                          **(placer_kw or {}))
     alns, best = [], []
     for a, b in pl.assign_stream(aligner, db.csfm, db.ptu, placer, reads,
                                  batch, mode=NGCL):
@@ -238,8 +252,10 @@ def run_assign(db, reads, device, batch):
     return alns, best
 
 
-def compare_runs(gpu, cpu, max_node_frac):
-    """Alignments must be identical (K1 is bit-exact); best placements
+def compare_runs(gpu, cpu, max_node_frac, cost_rtol=0.0):
+    """Alignments must be identical (K1 and K4 are bit-exact; against the
+    scan aligner, whose D chain sums in another order, costs may differ
+    by cost_rtol); best placements
     must pick the same (c, p, a) nodes, a differing read being accepted
     only as a near tie: the two runs' best logliks agree within the
     placement tolerance, and at most max_node_frac of the reads differ.
@@ -247,7 +263,8 @@ def compare_runs(gpu, cpu, max_node_frac):
     candidates tie to f32 rounding, which the two runs sum in different
     orders."""
     (ga, gb), (ca, cb) = gpu, cpu
-    n_aln = sum(a.align != b.align or a.cost != b.cost
+    n_aln = sum(a.align != b.align
+                or abs(a.cost - b.cost) > cost_rtol * abs(b.cost)
                 for a, b in zip(ga, ca))
     n_valid = n_diff = n_bad = 0
     max_ll = max_ratio = 0.0
@@ -276,6 +293,35 @@ def compare_runs(gpu, cpu, max_node_frac):
                     max_loglik_diff=max_ll, max_ratio_diff=max_ratio)
 
 
+def mode_stages(db, reads):
+    """Seconds of each stage of the second path on one batch, run one
+    after the other with the device drained in between: seed search, K4
+    DP, plane download + host walk + alignment strings, placement."""
+    import torch
+    from hmmufotu_tpu_torch import pipeline as pl
+    from hmmufotu_tpu_torch.hmm import NGCL, ViterbiAligner
+    from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
+    aligner = ViterbiAligner(db.hmm, device="cuda", traceback_mode="host")
+    placer = DevicePlacer(db.ptu, window=512, device="cuda",
+                          sep_kernel=False, fp_kernel=True)
+    out = {}
+
+    def stage(name, fn):
+        t = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = round(time.time() - t, 3)
+        return res
+
+    vp = stage("seed_s", lambda: pl.batch_find_seed_vpaths(
+        db.hmm, db.csfm, reads, mode=NGCL))
+    h = stage("dp_s", lambda: aligner.dispatch_batch(reads, vp))
+    alns = stage("download_walk_strings_s",
+                 lambda: aligner.finalize_batch(h))
+    stage("place_s", lambda: pl.assign_batch_device(db.ptu, placer, alns))
+    return out
+
+
 class Patch:
     """Swap module attributes for the duration of a with-block."""
 
@@ -294,10 +340,39 @@ class Patch:
             setattr(mod, name, old)
 
 
-def capture_calls(cv, cp):
-    """Record the arguments of every K1/K2/K3 call the main path makes
+def kernel_table():
+    """name -> (module, launcher attribute, source, TPU kernel replaced)
+    of every kernel of the port."""
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    from hmmufotu_tpu_torch.phylo import cuda_fixed_point as cf
+    from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    vit = "hmmufotu_tpu_torch/csrc/viterbi.cu"
+    place = "hmmufotu_tpu_torch/csrc/place.cu"
+    return {
+        "viterbi_traced": (cv, "viterbi_traced_cuda", vit,
+                           "hmmufotu_tpu/hmm/pallas_viterbi.py:60"),
+        "est": (cp, "est_cuda", place,
+                "hmmufotu_tpu/phylo/pallas_place.py:378"),
+        "sep_optimize": (cp, "sep_cuda", place,
+                         "hmmufotu_tpu/phylo/pallas_place.py:109"),
+        "viterbi_planes": (cv, "viterbi_planes_cuda", vit,
+                           "hmmufotu_tpu/hmm/pallas_viterbi.py:60"),
+        "fixed_point": (cf, "fixed_point_cuda", place,
+                        "hmmufotu_tpu/phylo/placement.py:184"),
+    }
+
+
+MAIN_KERNELS = ("viterbi_traced", "est", "sep_optimize")
+MODE_KERNELS = ("viterbi_planes", "fixed_point")
+
+
+def capture_calls():
+    """Record the arguments of every kernel-wrapper call the paths make
     (the calls still run)."""
-    calls = {"viterbi": [], "est": [], "sep": []}
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    from hmmufotu_tpu_torch.phylo import cuda_fixed_point as cf
+    from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    calls = {"viterbi": [], "est": [], "sep": [], "fp": []}
 
     def rec(key, fn):
         def wrapper(*args):
@@ -305,17 +380,28 @@ def capture_calls(cv, cp):
             return fn(*args)
         return wrapper
 
+    def rec_fp(fn):
+        # a K5 call's inputs are 0.4 GB at full width and the placer makes
+        # two an outer trip: keep the one with the most lanes iterating
+        def wrapper(*args):
+            n_iter = int((~args[4]).sum())
+            if not calls["fp"] or n_iter > calls["fp"][0][0]:
+                calls["fp"] = [(n_iter, args)]
+            return fn(*args)
+        return wrapper
+
     patch = Patch((cv, "viterbi_traced", rec("viterbi", cv.viterbi_traced)),
                   (cp, "est", rec("est", cp.est)),
-                  (cp, "sep_optimize", rec("sep", cp.sep_optimize)))
+                  (cp, "sep_optimize", rec("sep", cp.sep_optimize)),
+                  (cf, "fixed_point", rec_fp(cf.fixed_point)))
     return calls, patch
 
 
-def event_timers(cv, cp):
-    """Wrap the three CUDA launchers so that every launch is bracketed by
-    CUDA events on the launching stream."""
+def event_timers():
+    """Wrap every CUDA launcher so that each launch is bracketed by CUDA
+    events on the launching stream."""
     import torch
-    events = {"viterbi_traced": [], "est": [], "sep_optimize": []}
+    events = {name: [] for name in kernel_table()}
 
     def timed(key, fn):
         def wrapper(*args):
@@ -331,20 +417,21 @@ def event_timers(cv, cp):
         wrapper.launches = fn.launches
         return wrapper
 
-    patch = Patch(
-        (cv, "viterbi_traced_cuda", timed("viterbi_traced",
-                                          cv.viterbi_traced_cuda)),
-        (cp, "est_cuda", timed("est", cp.est_cuda)),
-        (cp, "sep_cuda", timed("sep_optimize", cp.sep_cuda)))
+    patch = Patch(*((mod, attr, timed(name, getattr(mod, attr)))
+                    for name, (mod, attr, _, _) in kernel_table().items()))
     return events, patch
 
 
 def counters():
-    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
-    from hmmufotu_tpu_torch.phylo import cuda_place as cp
-    return {"viterbi_traced": cv.viterbi_traced_cuda.launches,
-            "est": cp.est_cuda.launches,
-            "sep_optimize": cp.sep_cuda.launches}
+    return {name: getattr(mod, attr).launches
+            for name, (mod, attr, _, _) in kernel_table().items()}
+
+
+def reset_counters():
+    cnt = counters()
+    for c in cnt.values():
+        c.reset()
+    return cnt
 
 
 # ---------------------------------------------------------------------------
@@ -365,11 +452,10 @@ def cuda_ms(fn, reps: int) -> float:
     return s.elapsed_time(e) / reps
 
 
-def k1_cells(call) -> int:
-    """DP cells the banded regions of one K1 call allow (rows up to each
+def dp_cells(meta, n_rows, K, n_regions) -> int:
+    """DP cells the banded regions of one batch allow (rows up to each
     read's length): the work the data needs."""
     from hmmufotu_tpu_torch.hmm.viterbi import MAX_REGIONS, REGION_WIDTH
-    _, _, _, _, meta, _, n_rows, K, _, _, n_regions, _ = call
     meta = meta.cpu().numpy().astype(np.int64)
     B = meta.shape[0]
     reg = meta[:, 8:8 + MAX_REGIONS * REGION_WIDTH] \
@@ -415,7 +501,8 @@ def check_k1(calls, label):
                                    1)
         tc, em, scal, codes, meta, jb = call[:6]
         res["bytes"] += nbytes(tc, em, scal, codes, meta, jb, got)
-        res["ops"] += K1_OPS_PER_CELL * k1_cells(call)
+        res["ops"] += K1_OPS_PER_CELL * dp_cells(meta, call[6], call[7],
+                                                 call[10])
         log(f"  K1 {label}: B={codes.shape[0]} n_rows={call[6]} KP={call[8]}"
             f" n_regions={call[10]} dchain={call[11]}: comb bit-equal")
     return res
@@ -486,19 +573,140 @@ def check_k3(call, label):
     return res
 
 
-def kernel_phase(db, reads):
-    """Capture the kernels' inputs from one main-path batch and hold every
-    kernel against its plain version on them."""
+def trace_strings(comb_h):
+    """K1's comb -> per read (trace string, aln_start, aln_end, aln_from,
+    aln_to), the form the host walk returns."""
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    emits = cv.unpack_emits(comb_h[:, 8:])
+    bounds = comb_h[:, :8].view(np.float32)[:, 3:7].astype(np.int32)
+    out = []
+    for r in range(comb_h.shape[0]):
+        path = emits[r][emits[r] != cv.PAD_NIBBLE]
+        trace = "".join("BMID"[c] for c in path[::-1])
+        if not trace.startswith("B"):
+            trace = "B" + trace
+        out.append((trace + "E",) + tuple(int(b) for b in bounds[r]))
+    return out
+
+
+def check_k4(db, reads):
+    """K4 on the inputs of one main-path batch: planes, score and argmin
+    bit-equal to the plain version, and the host walk over the planes
+    giving K1's state strings and bounds for every read."""
     import torch
     from hmmufotu_tpu_torch import pipeline as pl
-    from hmmufotu_tpu_torch.hmm import GLOBAL, cuda_viterbi as cv
-    from hmmufotu_tpu_torch.hmm.viterbi import full_dp_regions
-    from hmmufotu_tpu_torch.phylo import cuda_place as cp
-    calls, patch = capture_calls(cv, cp)
+    from hmmufotu_tpu_torch.hmm import NGCL, ViterbiAligner
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    from hmmufotu_tpu_torch.hmm.viterbi import MAX_REGIONS, traceback_packed
+    al = ViterbiAligner(db.hmm, device="cuda")
+    vp = pl.batch_find_seed_vpaths(db.hmm, db.csfm, reads, mode=NGCL)
+    _, n_rows, codes, lengths, regions, _, comb = al.dispatch_batch(reads,
+                                                                    vp)
+    K = db.hmm.K
+    tc, em, scal = al.staged
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+    args = (tc, em, scal, to(codes), to(cv.make_meta(lengths, regions)),
+            n_rows, K)
+    got = cv.viterbi_planes_cuda(*args)
+    want = cv.viterbi_planes_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("score", "min_i", "min_j", "planes"), got, want):
+        if a.shape != b.shape or a.dtype != b.dtype \
+                or not torch.equal(a, b):
+            raise AssertionError(f"K4: {name} differs from the plain "
+                                 "version")
+    score_h, mi_h, mj_h, packed_h = (x.cpu().numpy() for x in got)
+    k1 = trace_strings(comb.cpu().numpy())
+    finite = np.isfinite(score_h)
+    bad = [r for r in np.nonzero(finite)[0]
+           if traceback_packed(packed_h, r, int(mi_h[r]), int(mj_h[r]), K)
+           != k1[r]]
+    if bad or finite.sum() < 0.9 * len(reads):
+        raise AssertionError(f"K4: host walk differs from K1's traceback "
+                             f"for reads {bad[:8]} ({int(finite.sum())} "
+                             "finite)")
+    del want
+    res = dict(ms=cuda_ms(lambda: cv.viterbi_planes_cuda(*args), 5),
+               plain_ms=cuda_ms(lambda: cv.viterbi_planes_plain(*args), 1),
+               bytes=nbytes(*args[:5], got[3]) + 8 * 4 * len(reads),
+               ops=K1_OPS_PER_CELL * dp_cells(args[4], n_rows, K,
+                                              MAX_REGIONS),
+               max_abs_err=0.0, plane_bytes=nbytes(got[3]))
+    log(f"  K4: B={len(reads)} n_rows={n_rows} KPF={tc.shape[1]}: planes "
+        f"({nbytes(got[3]) / 2**20:.0f} MiB), score and argmin bit-equal; "
+        f"host walk equals K1's traceback for all {int(finite.sum())} "
+        "finite reads")
+    return res
+
+
+def fp_trips(eA, eB, n, p_init, skip):
+    """Steps each lane of a K5 call takes (0 for a skipped lane): the
+    plain iteration, counting."""
+    import torch
+    from hmmufotu_tpu_torch.phylo.cuda_place import SAT_P
+    from hmmufotu_tpu_torch.phylo.tree import BRANCH_EPS, MAX_ITER
+    p = p_init.clone()
+    done = skip.clone()
+    trips = torch.zeros_like(p)
+    for _ in range(MAX_ITER):
+        if bool(done.all()):
+            break
+        trips += (~done).to(trips.dtype)
+        num = eB * p[:, None]
+        den = eA * (1.0 - p[:, None]) + num
+        pn = torch.where(den > 0, num / den, 0.0).sum(1) / n
+        bad = ~((pn >= 0) & (pn <= 1))
+        diff = (torch.log1p(-pn) - torch.log1p(-p)).abs()
+        conv = (diff < BRANCH_EPS) | ~torch.isfinite(diff) | (pn >= SAT_P)
+        p = torch.where(done | bad, p, pn)
+        done = done | conv | bad
+    return trips
+
+
+def check_k5(call):
+    """K5 against its plain version on the call of the fixed-point placer
+    with the most lanes iterating."""
+    import torch
+    from hmmufotu_tpu_torch.phylo import cuda_fixed_point as cf
+    eA, eB, n, p_init, skip = call
+    got = cf.fixed_point_cuda(*call)
+    want = cf.fixed_point_plain(*call)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) \
+            or bool((err > FP_ATOL + FP_RTOL * want.abs()).any()) \
+            or not torch.equal(got[skip], p_init[skip].to(got.dtype)):
+        raise AssertionError(f"K5 disagrees: max |dp| {float(err.max())}")
+    live = ~skip
+    n_live = int(live.sum())
+    trips = fp_trips(eA, eB, n.to(torch.float32), p_init, skip)
+    sites = ((eA[live] > 0) | (eB[live] > 0)).sum(1).double()
+    M, W = eA.shape
+    res = dict(ms=cuda_ms(lambda: cf.fixed_point_cuda(*call), 5),
+               plain_ms=cuda_ms(lambda: cf.fixed_point_plain(*call), 1),
+               bytes=n_live * 2 * W * 4 + M * 4 * 4,
+               ops=float((sites * trips[live].double()).sum())
+               * FP_STEP_OPS,
+               max_abs_err=float(err.max()))
+    log(f"  K5: M={M} W={W} iterating lanes={n_live}: max |dp| "
+        f"{float(err.max()):.3g}, mean trips "
+        f"{float(trips[live].mean()) if n_live else 0:.2f}, max "
+        f"{int(trips.max())}")
+    return res
+
+
+def kernel_phase(db, reads):
+    """Capture the kernels' inputs from one batch through each path and
+    hold every kernel against its plain version on them.  Returns the
+    per-kernel results and the main path's (alignments, best) of the
+    batch."""
+    import torch
+    from hmmufotu_tpu_torch import pipeline as pl
+    from hmmufotu_tpu_torch.hmm import GLOBAL, ViterbiAligner
+    calls, patch = capture_calls()
     with patch:
-        run_assign(db, reads, "cuda", len(reads))
+        main_run = run_assign(db, reads, "cuda", len(reads))
         # wide launch: 256 reads as unseeded full-DP reads
-        from hmmufotu_tpu_torch.hmm import ViterbiAligner
         al = ViterbiAligner(db.hmm, device="cuda")
         n_main = len(calls["viterbi"])
         h = al.dispatch_batch(reads[:256], None)
@@ -507,11 +715,16 @@ def kernel_phase(db, reads):
         vp = pl.batch_find_seed_vpaths(db.hmm, db.csfm, reads, mode=GLOBAL)
         al.dispatch_batch(reads, vp)
         torch.cuda.synchronize()
-    del h
+        del h
+        # the fixed-point placer's K5 inputs (the aligner's mode does not
+        # change them)
+        run_assign(db, reads, "cuda", len(reads),
+                   placer_kw=dict(sep_kernel=False, fp_kernel=True))
+        torch.cuda.synchronize()
     v = calls["viterbi"]
     if not any(c[10] == 5 for c in v[n_wide:]):
         raise AssertionError("no K1 call with 5 region slots")
-    if calls["est"] == [] or calls["sep"] == []:
+    if calls["est"] == [] or calls["sep"] == [] or calls["fp"] == []:
         raise AssertionError("placement kernels were not called")
     k1 = check_k1(v[:n_main], "main batch (3 regions)")
     check_k1(v[n_main:n_wide], "wide, full DP")
@@ -525,7 +738,12 @@ def kernel_phase(db, reads):
     ms1[40:48] = 0.0
     ms1[40] = 1.0
     check_k3(c[:8] + (ms1, 1), "1 rate")
-    return {"viterbi_traced": k1, "est": k2, "sep_optimize": k3}
+    k5 = check_k5(calls["fp"][0][1])
+    calls.clear()
+    torch.cuda.empty_cache()
+    k4 = check_k4(db, reads)
+    return {"viterbi_traced": k1, "est": k2, "sep_optimize": k3,
+            "viterbi_planes": k4, "fixed_point": k5}, main_run
 
 
 # ---------------------------------------------------------------------------
@@ -572,25 +790,21 @@ def main() -> int:
     t = time.time()
     log("[kernels] inputs captured from one main-path batch of "
         f"{BATCH} reads")
-    kres = kernel_phase(db, reads)
+    kres, main_run = kernel_phase(db, reads)
     torch.cuda.synchronize()
     log(f"[kernels] all kernels agree with their plain versions "
         f"({time.time() - t:.1f} s)")
 
     # ---- 5. fixture main path on the card vs a CPU run -------------------
-    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
-    from hmmufotu_tpu_torch.phylo import cuda_place as cp
     fx_reads = reads[:N_FIXTURE_READS]
     run_assign(db, fx_reads[:64], "cuda", 64)               # warm-up
     torch.cuda.synchronize()
-    cnt = counters()
-    for c in cnt.values():
-        c.reset()
+    cnt = reset_counters()
     t = time.time()
     gpu = run_assign(db, fx_reads, "cuda", N_FIXTURE_READS // 2)
     torch.cuda.synchronize()
     dt = time.time() - t
-    fx_launches = {k: c.n for k, c in cnt.items()}
+    fx_launches = {k: cnt[k].n for k in MAIN_KERNELS}
     log(f"[assign] fixture: {len(fx_reads)} reads on the card in "
         f"{dt:.2f} s ({len(fx_reads) / dt:.1f} reads/s), launches "
         f"{fx_launches}")
@@ -604,7 +818,66 @@ def main() -> int:
     if not ok:
         raise AssertionError("fixture run disagrees with the CPU run")
 
-    # ---- 6. realistic size ----------------------------------------------
+
+    # ---- 6. the second path: host traceback (K4) + fixed-point placer
+    # (K5), one batch of the full width, against the main path ----------
+    mode_kw = dict(aligner_kw=dict(traceback_mode="host"),
+                   placer_kw=dict(sep_kernel=False, fp_kernel=True))
+    run_assign(db, reads[:64], "cuda", 64, **mode_kw)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cnt = reset_counters()
+    events, patch = event_timers()
+    with patch:
+        t = time.time()
+        modes = run_assign(db, reads, "cuda", BATCH, **mode_kw)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+    mode_launches = {k: cnt[k].n for k in MODE_KERNELS}
+    mode_ms = {k: sum(s.elapsed_time(e) for s, e in events[k])
+               for k in MODE_KERNELS}
+    mode_peak = torch.cuda.max_memory_allocated()
+    log(f"[modes] host-traceback aligner + fixed-point placer: "
+        f"{len(reads)} reads in one batch of {BATCH} in {dt:.2f} s "
+        f"({len(reads) / dt:.1f} reads/s); launches "
+        f"{ {k: c.n for k, c in cnt.items()} }; kernel time ms "
+        f"{json.dumps({k: round(v, 3) for k, v in mode_ms.items()})}; "
+        f"planes downloaded per batch "
+        f"{kres['viterbi_planes']['plane_bytes']} bytes; peak device "
+        f"memory {mode_peak / 2**30:.2f} GiB")
+    if min(mode_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the second path was not "
+                             f"launched: {mode_launches}")
+    if any(cnt[k].n for k in MAIN_KERNELS):
+        raise AssertionError("the second path launched a main-path kernel")
+    ok, stats = compare_runs(modes, main_run, 0.01)
+    log(f"[modes] vs the main path, read for read: {json.dumps(stats)}")
+    if not ok:
+        raise AssertionError("the second path disagrees with the main path")
+    log(f"[modes] stages of the same batch, host clock: "
+        f"{json.dumps(mode_stages(db, reads))}")
+    sub = reads[:N_MODE_READS]
+    main_sub = (main_run[0][:len(sub)], main_run[1][:len(sub)])
+    for label, kw, cost_rtol in (
+            ("scan aligner (host traceback)",
+             dict(aligner_kw=dict(kernel="scan")), 1e-6),
+            ("scan aligner (device traceback)",
+             dict(aligner_kw=dict(kernel="scan", traceback_mode="device")),
+             1e-6),
+            ("K3 fed by the tensor-op estimate",
+             dict(placer_kw=dict(sep_kernel=True, est_kernel=False)), 0.0),
+            ("tensor-op optimize, tensor-op fixed point",
+             dict(placer_kw=dict(sep_kernel=False, fp_kernel=False)), 0.0)):
+        t = time.time()
+        out = run_assign(db, sub, "cuda", len(sub), **kw)
+        torch.cuda.synchronize()
+        ok, stats = compare_runs(out, main_sub, 0.05, cost_rtol)
+        log(f"[modes] {label}: {len(sub)} reads in {time.time() - t:.2f} "
+            f"s, vs the main path: {json.dumps(stats)}")
+        if not ok:
+            raise AssertionError(f"{label} disagrees with the main path")
+
+    # ---- 7. realistic size ----------------------------------------------
     sdb, n_nodes, max_depth, t_gen, t_build = build_synth_db(
         os.path.join(WORK, "synth"), SCALE_LEAVES, SCALE_COLS)
     log(f"[scale] synthetic DB: {SCALE_LEAVES} leaves ({n_nodes} nodes, "
@@ -622,17 +895,16 @@ def main() -> int:
     run_assign(sdb, s_reads[:BATCH], "cuda", BATCH)          # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in cnt.values():
-        c.reset()
-    events, patch = event_timers(cv, cp)
+    cnt = reset_counters()
+    events, patch = event_timers()
     with patch:
         t = time.time()
         sgpu = run_assign(sdb, s_reads, "cuda", BATCH)
         torch.cuda.synchronize()
         dt = time.time() - t
-    launches = {k: c.n for k, c in cnt.items()}
-    kernel_ms = {k: sum(s.elapsed_time(e) for s, e in v)
-                 for k, v in events.items()}
+    launches = {k: cnt[k].n for k in MAIN_KERNELS}
+    kernel_ms = {k: sum(s.elapsed_time(e) for s, e in events[k])
+                 for k in MAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     n_placed = sum(b is not None for b in sgpu[1])
     log(f"[scale] {len(s_reads)} reads in {dt:.2f} s: "
@@ -654,16 +926,12 @@ def main() -> int:
         raise AssertionError("scale run disagrees with the CPU run")
 
     # ---- result ----------------------------------------------------------
-    meta = {
-        "viterbi_traced": ("hmmufotu_tpu_torch/csrc/viterbi.cu",
-                           "hmmufotu_tpu/hmm/pallas_viterbi.py:60"),
-        "est": ("hmmufotu_tpu_torch/csrc/place.cu",
-                "hmmufotu_tpu/phylo/pallas_place.py:378"),
-        "sep_optimize": ("hmmufotu_tpu_torch/csrc/place.cu",
-                         "hmmufotu_tpu/phylo/pallas_place.py:109"),
-    }
+    # launches and path_total_ms are those of the path that runs the
+    # kernel: the scale run for K1-K3, the second path's run for K4, K5
+    launches.update(mode_launches)
+    kernel_ms.update(mode_ms)
     kernels = []
-    for name, (src, rep) in meta.items():
+    for name, (_, _, src, rep) in kernel_table().items():
         r = kres[name]
         b_ms, b_by = bound(r["bytes"], r["ops"])
         kernels.append({
@@ -671,7 +939,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
-            "scale_total_ms": kernel_ms[name]})
+            "path_total_ms": kernel_ms[name]})
     log(f"[done] {time.time() - t_all:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-// K2 and K3: the SEP placement estimate and the joint 3-branch
-// branch-length optimization.
+// K2, K3 and K5: the SEP placement estimate, the joint 3-branch
+// branch-length optimization, and the single-branch fixed point on its own.
 //
 // K2 hm_est replaces hmmufotu_tpu/phylo/pallas_place.py `_est_kernel`
 // (est_pallas): per candidate lane, the spectral P(t) = U exp(lam t) U^-1
@@ -13,18 +13,34 @@
 // convergence (BRANCH_EPS, MAX_ITER) — then the root-message loglik and
 // the loop trip counts.  A lane that is not live writes zeros.
 //
+// K5 hm_fp replaces hmmufotu_tpu/phylo/placement.py `_fp_kernel`
+// (_fixed_point_pallas): the single-branch Felsenstein fixed point
+// p <- sum_w eB_w p / (eA_w (1 - p) + eB_w p) / n on site factors that the
+// caller pre-scaled, to convergence per lane.  It serves the placer whose
+// outer 3-branch loop and rate-mixed convolutions stay tensor ops.
+//
 // What bounds them on the H100: K2 is bound by transcendentals (per site
 // ~12 expf + 8 logf and ~200 flops over 48 B of messages, far above the
 // card's bytes-per-flop line).  K3 is bound by the serial iteration chain
 // of each live lane: every inner fixed-point step ends in a block-wide
-// sum, and only ~2% of lanes are live after the estimate filter.
+// sum, and only ~2% of lanes are live after the estimate filter.  K5 is
+// bound by bytes on paper (a live lane's two W-site rows read once, 2 flops
+// a byte per trip over ~10-30 trips); in fact by the latency of each
+// lane's dependent chain of divide, warp sum and two log1pf a trip, and by
+// the few lanes that are live.
 //
 // Design: one block per candidate lane, threads over the W sites, block
 // reductions for the counts and sums.  All per-site work of a step is
 // local to the site, so the rate-mixed convolutions are computed per site
 // in registers and never stored; K3 keeps the lane's messages and its
 // fixed-point site factors in shared memory across the iterations.  A
-// dead K3 block returns at once.  Accurate expf/logf/log1pf (no fast
+// dead K3 block returns at once.  K5 takes one warp per lane: the TPU
+// kernel steps 128 lanes together until all are done, but a done lane is
+// frozen, so a lane's result depends on that lane alone and each warp
+// stops at its own convergence; the lane's eA/eB rows are read from device
+// memory once into shared memory, each thread keeping the sites it sums,
+// and a skipped lane's warp returns p_init without reading them.
+// Accurate expf/logf/log1pf (no fast
 // math) and no FMA contraction (-fmad=false), as in the plain versions.
 
 #include <cuda_runtime.h>
@@ -386,6 +402,69 @@ __global__ void sep_kernel(const float* __restrict__ Up,
     o[6] = 0.0f;
     o[7] = 0.0f;
   }
+}
+
+// K5: one warp per lane, FP_WARPS lanes a block; scal [M, 4] = (n, p_init,
+// skip, 0); shared memory [FP_WARPS][2][W]
+#define FP_WARPS 8
+
+__global__ void fp_kernel(const float* __restrict__ eA,
+                          const float* __restrict__ eB,
+                          const float* __restrict__ scal,
+                          float* __restrict__ out, int M, int W) {
+  extern __shared__ float fp_s[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x * FP_WARPS + warp;
+  if (m >= M) return;
+  const float n = scal[4 * m];
+  float p = scal[4 * m + 1];
+  if (scal[4 * m + 2] > 0.5f) {  // lane starts done
+    if (lane == 0) out[m] = p;
+    return;
+  }
+  // thread t keeps sites t, t+32, ...: it alone reads what it wrote
+  float* a = fp_s + (size_t)warp * 2 * W;
+  float* b = a + W;
+  const size_t row = (size_t)m * W;
+  for (int w = lane; w < W; w += 32) {
+    a[w] = eA[row + w];
+    b[w] = eB[row + w];
+  }
+  const float sat = (float)(1.0 - 1e-7);
+  for (int it = 0; it < MAX_ITER; ++it) {
+    float part = 0.0f;
+    for (int w = lane; w < W; w += 32) {
+      const float num = b[w] * p;
+      const float den = a[w] * (1.0f - p) + num;
+      part += den > 0.0f ? num / den : 0.0f;
+    }
+    // butterfly sum: every thread of the warp holds the same total
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, o);
+    const float pn = part / n;
+    const bool bad = !(pn >= 0.0f && pn <= 1.0f);
+    const float diff = fabsf(log1pf(-pn) - log1pf(-p));
+    const bool conv = diff < BRANCH_EPS ||
+                      !(diff > -CUDART_INF_F && diff < CUDART_INF_F) ||
+                      pn >= sat;
+    if (!bad) p = pn;
+    if (conv || bad) break;
+  }
+  if (lane == 0) out[m] = p;
+}
+
+extern "C" int hm_fp(const float* eA, const float* eB, const float* scal,
+                     float* out, int M, int W, void* stream) {
+  if (M == 0) return 0;
+  const size_t smem = (size_t)FP_WARPS * 2 * W * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      fp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (M + FP_WARPS - 1) / FP_WARPS;
+  fp_kernel<<<blocks, FP_WARPS * 32, smem, (cudaStream_t)stream>>>(
+      eA, eB, scal, out, M, W);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int hm_est(const float* Up, const float* Vp, const float* Np,

@@ -1,17 +1,33 @@
-// K1: banded profile-HMM Viterbi DP with the traceback run in the kernel.
+// K1 and K4: the banded profile-HMM Viterbi DP, one kernel body in two
+// modes, as the Pallas `_viterbi_kernel` is one body with `traced`.
 //
-// Replaces hmmufotu_tpu/hmm/pallas_viterbi.py `_viterbi_kernel` in its
-// traced mode (viterbi_pallas_traced / _viterbi_split_jit).  Output
-// contract is identical: one [8 + TPS] int32 comb row per read — the f32
-// bits of (score, best_i, best_j, aln_start, aln_end, aln_from, aln_to, 0)
+// K1 hm_viterbi_traced replaces hmmufotu_tpu/hmm/pallas_viterbi.py
+// `_viterbi_kernel` in its traced mode (viterbi_pallas_traced /
+// _viterbi_split_jit): the traceback runs in the kernel.  Output contract
+// is identical: one [8 + TPS] int32 comb row per read — the f32 bits of
+// (score, best_i, best_j, aln_start, aln_end, aln_from, aln_to, 0)
 // followed by the nibble-packed reverse state string (PAD_WORD fill).
 //
-// What bounds it on the H100: neither bytes nor FLOPs.  A read moves
-// ~1 KB in and ~0.5 KB out; its DP does ~100 flops per cell.  The row
-// recurrence is a chain of n_rows dependent steps, each a handful of
+// K4 hm_viterbi_planes replaces the same `_viterbi_kernel` in its untraced
+// mode (viterbi_pallas): the DP at full profile width (band origin 0, all
+// KPF lanes, MAX_REGIONS slots, unbounded D chain) writing the
+// nibble-packed choice planes to device memory as [n_rows/8, B, KPF] int32
+// (row g*8+r in nibble 7-r of plane g) and, per read, the f32 bits of
+// (score, best_i, best_j, 0, 0, 0, 0, 0).  It does not walk the planes:
+// the host or a device walk does, and viterbi_pallas drops the walk of
+// its kernel too.
+//
+// What bounds them on the H100.  K1: neither bytes nor FLOPs.  A read
+// moves ~1 KB in and ~0.5 KB out; its DP does ~100 flops per cell.  The
+// row recurrence is a chain of n_rows dependent steps, each a handful of
 // block-wide barriers (the D chain's log-depth doubling scan and the row
 // argmin), so the kernel is latency-bound on __syncthreads and on the
-// serial single-thread traceback walk.
+// serial single-thread traceback walk.  K4: by the bound, bytes (the
+// n_rows/8 * KPF * 4 bytes of planes a read, 369 MB for 2,048 reads of 256
+// rows at 1,408 lanes, outweigh the ~40 operations of each cell inside
+// the band); in fact the same barrier chain, with log2(KPF) doubling
+// steps a row instead of K1's bounded 6-10.  Its plane words are written
+// coalesced along lanes, once every 8 rows.
 //
 // Design: one thread block per read, threads over band lanes (LPT lanes
 // per thread, lane l owned by thread l % blockDim), the row loop inside
@@ -50,13 +66,13 @@ __device__ __forceinline__ Pair pmin(Pair a, Pair b) {
 }
 
 template <int LPT>
-__global__ void viterbi_traced_kernel(
+__global__ void viterbi_kernel(
     const float* __restrict__ tc, const float* __restrict__ em,
     const float* __restrict__ scal, const int* __restrict__ codes,
     const int* __restrict__ meta, const int* __restrict__ jbv,
     int* __restrict__ comb, int* __restrict__ planes_g, int n_rows, int K,
     int KPF, int KP, int max_steps, int TPS, int n_regions, int dchain,
-    int planes_in_smem) {
+    int planes_in_smem, int traced) {
   extern __shared__ float smem[];
   float* M_s = smem;
   float* I_s = M_s + KP;
@@ -73,10 +89,13 @@ __global__ void viterbi_traced_kernel(
   const int tid = threadIdx.x;
   const int bd = blockDim.x;
   const int G = n_rows / 8;
-  int* planes = planes_in_smem
-                    ? reinterpret_cast<int*>(c_s + KP)
-                    : planes_g + (size_t)r * G * KP;
-  const int jb = jbv[r];
+  // plane g of this read: traced, a [G, KP] block of its own (shared
+  // memory or scratch); untraced, row r of the [G, B, KP] output
+  const size_t pstride = traced ? (size_t)KP : (size_t)gridDim.x * KP;
+  int* planes = planes_in_smem ? reinterpret_cast<int*>(c_s + KP)
+                : traced       ? planes_g + (size_t)r * G * KP
+                               : planes_g + (size_t)r * KP;
+  const int jb = jbv ? jbv[r] : 0;
   const int length = meta[r * 128];
   const float t_NN = scal[0], t_NB = scal[1], t_CC = scal[2],
               t_EC = scal[3], tIMK = scal[4];
@@ -284,7 +303,7 @@ __global__ void viterbi_traced_kernel(
         if (jabs == K) ink = In[k];
         pack[k] = (pack[k] << 4) | ch[k];
         if ((i & 7) == 0) {
-          planes[(size_t)((i >> 3) - 1) * KP + l] = pack[k];
+          planes[(size_t)((i >> 3) - 1) * pstride + l] = pack[k];
           pack[k] = 0;
         }
       }
@@ -326,6 +345,15 @@ __global__ void viterbi_traced_kernel(
   }
   __syncthreads();
 
+  if (!traced) {
+    if (tid == 0) {
+      out[0] = __float_as_int(best_s);
+      out[1] = __float_as_int((float)best_i_s);
+      out[2] = __float_as_int((float)best_j_s);
+    }
+    if (tid >= 3 && tid < 8) out[tid] = 0;
+    return;
+  }
   // ---- traceback (reference buildViterbiTrace, BandedHMMP7.cpp:943-1006)
   if (tid == 0) {
     const float best = best_s;
@@ -342,7 +370,7 @@ __global__ void viterbi_traced_kernel(
       word = (word & ~(15u << sh_t)) | ((uint32_t)s << sh_t);
       const int g = (i - 1) >> 3;
       const int jc = min(j, KP - 1);
-      const uint32_t w = (uint32_t)planes[(size_t)g * KP + jc];
+      const uint32_t w = (uint32_t)planes[(size_t)g * pstride + jc];
       const int c = (int)((w >> (4 * (7 - ((i - 1) & 7)))) & 15u);
       const int cm = c & 3, cI = (c >> 2) & 1, cD = (c >> 3) & 1;
       int s_n = s, i_n = i, j_n = j;
@@ -387,17 +415,48 @@ static cudaError_t launch(const float* tc, const float* em, const float* scal,
                           int* comb, int* planes_g, int B, int n_rows, int K,
                           int KPF, int KP, int max_steps, int TPS,
                           int n_regions, int dchain, int threads,
-                          int planes_in_smem, cudaStream_t stream) {
+                          int planes_in_smem, int traced,
+                          cudaStream_t stream) {
   size_t smem = (size_t)5 * KP * sizeof(float);
   if (planes_in_smem) smem += (size_t)(n_rows / 8) * KP * sizeof(int);
   cudaError_t e = cudaFuncSetAttribute(
-      viterbi_traced_kernel<LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      viterbi_kernel<LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  viterbi_traced_kernel<LPT><<<B, threads, smem, stream>>>(
+  viterbi_kernel<LPT><<<B, threads, smem, stream>>>(
       tc, em, scal, codes, meta, jb, comb, planes_g, n_rows, K, KPF, KP,
-      max_steps, TPS, n_regions, dchain, planes_in_smem);
+      max_steps, TPS, n_regions, dchain, planes_in_smem, traced);
   return cudaGetLastError();
+}
+
+static cudaError_t dispatch(const float* tc, const float* em,
+                            const float* scal, const int* codes,
+                            const int* meta, const int* jb, int* comb,
+                            int* planes_g, int B, int n_rows, int K, int KPF,
+                            int KP, int max_steps, int TPS, int n_regions,
+                            int dchain, int lpt, int threads,
+                            int planes_in_smem, int traced,
+                            cudaStream_t st) {
+  switch (lpt) {
+    case 1:
+      return launch<1>(tc, em, scal, codes, meta, jb, comb, planes_g, B,
+                       n_rows, K, KPF, KP, max_steps, TPS, n_regions, dchain,
+                       threads, planes_in_smem, traced, st);
+    case 2:
+      return launch<2>(tc, em, scal, codes, meta, jb, comb, planes_g, B,
+                       n_rows, K, KPF, KP, max_steps, TPS, n_regions, dchain,
+                       threads, planes_in_smem, traced, st);
+    case 4:
+      return launch<4>(tc, em, scal, codes, meta, jb, comb, planes_g, B,
+                       n_rows, K, KPF, KP, max_steps, TPS, n_regions, dchain,
+                       threads, planes_in_smem, traced, st);
+    case 8:
+      return launch<8>(tc, em, scal, codes, meta, jb, comb, planes_g, B,
+                       n_rows, K, KPF, KP, max_steps, TPS, n_regions, dchain,
+                       threads, planes_in_smem, traced, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int hm_viterbi_traced(const float* tc, const float* em,
@@ -409,25 +468,22 @@ extern "C" int hm_viterbi_traced(const float* tc, const float* em,
                                  int threads, int planes_in_smem,
                                  void* stream) {
   if (B == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (lpt) {
-    case 1:
-      return launch<1>(tc, em, scal, codes, meta, jb, comb, planes_g, B,
+  return (int)dispatch(tc, em, scal, codes, meta, jb, comb, planes_g, B,
                        n_rows, K, KPF, KP, max_steps, TPS, n_regions, dchain,
-                       threads, planes_in_smem, st);
-    case 2:
-      return launch<2>(tc, em, scal, codes, meta, jb, comb, planes_g, B,
-                       n_rows, K, KPF, KP, max_steps, TPS, n_regions, dchain,
-                       threads, planes_in_smem, st);
-    case 4:
-      return launch<4>(tc, em, scal, codes, meta, jb, comb, planes_g, B,
-                       n_rows, K, KPF, KP, max_steps, TPS, n_regions, dchain,
-                       threads, planes_in_smem, st);
-    case 8:
-      return launch<8>(tc, em, scal, codes, meta, jb, comb, planes_g, B,
-                       n_rows, K, KPF, KP, max_steps, TPS, n_regions, dchain,
-                       threads, planes_in_smem, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                       lpt, threads, planes_in_smem, 1,
+                       (cudaStream_t)stream);
+}
+
+// K4: sb [B, 8] int32 (f32 bits of score, best_i, best_j, then zeros),
+// packed [n_rows/8, B, KPF] int32
+extern "C" int hm_viterbi_planes(const float* tc, const float* em,
+                                 const float* scal, const int* codes,
+                                 const int* meta, int* sb, int* packed,
+                                 int B, int n_rows, int K, int KPF, int lpt,
+                                 int threads, void* stream) {
+  if (B == 0) return 0;
+  if (n_rows % 8 != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(tc, em, scal, codes, meta, nullptr, sb, packed, B,
+                       n_rows, K, KPF, KPF, 0, 0, MAX_REGIONS, 1 << 30, lpt,
+                       threads, 0, 0, (cudaStream_t)stream);
 }

@@ -1,16 +1,23 @@
-"""Banded Viterbi DP with in-kernel traceback: CUDA kernel K1 and its
-plain PyTorch version.
+"""Banded Viterbi DP on the device: the CUDA kernel of csrc/viterbi.cu in
+its two modes, K1 (traceback in the kernel) and K4 (choice planes
+written to device memory), each beside its plain PyTorch version.
 
-Counterpart of hmmufotu_tpu/hmm/pallas_viterbi.py (traced mode).  The
-kernel itself is csrc/viterbi.cu; this module stages the cost rows,
-builds the per-read metadata, routes reads between a narrow band-relative
-launch and a full-width launch (viterbi_traced_split, the host routing of
-viterbi_pallas_traced_split) and decodes the result.
+Counterpart of hmmufotu_tpu/hmm/pallas_viterbi.py.  This module stages
+the cost rows, builds the per-read metadata, routes K1's reads between a
+narrow band-relative launch and a full-width launch (viterbi_traced_split,
+the host routing of viterbi_pallas_traced_split) and decodes the results.
 
-Output contract (shared by the kernel and viterbi_traced_plain): one
+K1 output contract (the kernel and viterbi_traced_plain): one
 [B, 8 + TPS] int32 "comb" — cols 0:8 are the f32 bits of (score, best_i,
 best_j, aln_start, aln_end, aln_from, aln_to, 0), cols 8: the
 nibble-packed reverse state strings (decode with unpack_emits).
+
+K4 output contract (the kernel and viterbi_planes_plain, counterpart of
+viterbi_pallas): (score [B] f32, min_i [B] int32, min_j [B] int32,
+packed [n_rows/8, B, KPF] int32) — the 4-bit choices of DP row g*8+r in
+nibble 7-r of plane g, at full profile width (decode with
+unpack_nibble_choices, or walk with viterbi.traceback_packed on the host
+and traceback_device_packed on the device).
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ import numpy as np
 import torch
 
 from .. import _cuda
-from .viterbi import MAX_REGIONS, REGION_WIDTH
+from .viterbi import (MAX_REGIONS, REGION_WIDTH, shift_lanes as shift,
+                      walk_choices)
 
 PACK_ROWS = 8                        # DP rows packed per int32 plane
 PAD_NIBBLE = 5                       # traceback pad state
@@ -94,23 +102,19 @@ def make_meta(lengths: np.ndarray, regions: np.ndarray) -> np.ndarray:
     return meta
 
 
-def viterbi_traced_plain(tc, em, scal, codes, meta, jb, n_rows: int,
-                         K: int, KP: int, max_steps: int,
-                         n_regions: int = MAX_REGIONS,
-                         dchain: int = BIG) -> torch.Tensor:
-    """Plain PyTorch version of K1, batched over reads: the same row
-    recurrence, D-chain doubling scan, running best and traceback as
-    csrc/viterbi.cu and the Pallas _viterbi_kernel.
+def _dp_rows_plain(tc, em, scal, codes, meta, jb, n_rows: int, K: int,
+                   KP: int, n_regions: int, dchain: int):
+    """The row recurrence shared by the plain versions of K1 and K4,
+    batched over reads: the same cell arithmetic, D-chain doubling scan
+    and running best as csrc/viterbi.cu and the Pallas _viterbi_kernel.
 
-    codes [B, n_rows] int32 (0..3), meta [B, 128] int32, jb [B] int32
-    band origin (absolute profile position of lane 0).
-    Returns comb [B, 8 + max_steps // 8] int32."""
+    Returns (best [B] f32, best_i [B] int64, best_j [B] int64,
+    choices [n_rows, B, KP] uint8)."""
     dev = codes.device
     B = codes.shape[0]
     KPF = tc.shape[1]
     f32 = torch.float32
     INF = float("inf")
-    TPS = max_steps // 8
     lanes = torch.arange(KP, device=dev)
     jb64 = jb.to(torch.int64)
     jabs = lanes[None, :] + jb64[:, None]                # [B, KP]
@@ -134,12 +138,6 @@ def viterbi_traced_plain(tc, em, scal, codes, meta, jb, n_rows: int,
     j_hi1 = j_hi.clamp(max=K)
     isdiag = diag != 0
     ent1 = ent == 1
-
-    def shift(x, s, fill):
-        out = torch.full_like(x, fill)
-        if s < x.shape[1]:
-            out[:, s:] = x[:, :-s]
-        return out
 
     def masks_for_row(i):
         ci = i - i_lo
@@ -234,7 +232,26 @@ def viterbi_traced_plain(tc, em, scal, codes, meta, jb, n_rows: int,
         choices[i - 1] = (choiceM | (choiceI << 2) | (choiceD << 3)) \
             .to(torch.uint8)
         Mp, Ip, Dp = Mn, In, Dn
+    return best, best_i, best_j, choices
 
+
+def viterbi_traced_plain(tc, em, scal, codes, meta, jb, n_rows: int,
+                         K: int, KP: int, max_steps: int,
+                         n_regions: int = MAX_REGIONS,
+                         dchain: int = BIG) -> torch.Tensor:
+    """Plain PyTorch version of K1, batched over reads: the row
+    recurrence of _dp_rows_plain, then the traceback.
+
+    codes [B, n_rows] int32 (0..3), meta [B, 128] int32, jb [B] int32
+    band origin (absolute profile position of lane 0).
+    Returns comb [B, 8 + max_steps // 8] int32."""
+    best, best_i, best_j, choices = _dp_rows_plain(
+        tc, em, scal, codes, meta, jb, n_rows, K, KP, n_regions, dchain)
+    dev = codes.device
+    B = codes.shape[0]
+    f32 = torch.float32
+    TPS = max_steps // 8
+    jb64 = jb.to(torch.int64)
     # ---- traceback (reference buildViterbiTrace,
     # BandedHMMP7.cpp:943-1006) over band-relative lanes
     ar = torch.arange(B, device=dev)
@@ -353,6 +370,93 @@ def viterbi_traced(tc, em, scal, codes, meta, jb, n_rows: int, K: int,
               n_regions, dchain)
 
 
+def viterbi_planes_plain(tc, em, scal, codes, meta, n_rows: int, K: int):
+    """Plain PyTorch version of K4: the full-width DP (no band origin,
+    all KPF lanes, MAX_REGIONS slots, unbounded D chain, as
+    viterbi_pallas runs it) with the choices nibble-packed 8 rows per
+    int32 plane.
+
+    codes [B, n_rows] int32 (0..3), meta [B, 128] int32.
+    Returns (score [B] f32, min_i [B] int32, min_j [B] int32,
+    packed [n_rows/8, B, KPF] int32)."""
+    if n_rows % PACK_ROWS:
+        raise ValueError(f"n_rows {n_rows} must be a multiple of "
+                         f"{PACK_ROWS}")
+    B = codes.shape[0]
+    KPF = tc.shape[1]
+    jb = torch.zeros(B, dtype=torch.int32, device=codes.device)
+    best, best_i, best_j, choices = _dp_rows_plain(
+        tc, em, scal, codes, meta, jb, n_rows, K, KPF, MAX_REGIONS, BIG)
+    ch = choices.reshape(n_rows // PACK_ROWS, PACK_ROWS, B, KPF)
+    word = torch.zeros(ch[:, 0].shape, dtype=torch.int64,
+                       device=codes.device)
+    for r in range(PACK_ROWS):
+        word |= ch[:, r].to(torch.int64) << (4 * (PACK_ROWS - 1 - r))
+    # the top nibble reaches bit 31: wrap into int32 as the kernel's
+    # shifts do
+    packed = torch.where(word >= 1 << 31, word - (1 << 32), word) \
+        .to(torch.int32)
+    return (best, best_i.to(torch.int32), best_j.to(torch.int32), packed)
+
+
+def viterbi_planes_cuda(tc, em, scal, codes, meta, n_rows: int, K: int):
+    """Launch K4 (csrc/viterbi.cu hm_viterbi_planes) on CUDA tensors;
+    same arguments and result as viterbi_planes_plain.  One block per
+    read, so any batch size launches as it is; the planes are a fresh
+    tensor of the caching allocator, which hands a batch shape's freed
+    block back to the next batch."""
+    for t, dt, nd, name in ((tc, torch.float32, 2, "tc"),
+                            (em, torch.float32, 2, "em"),
+                            (scal, torch.float32, 1, "scal"),
+                            (codes, torch.int32, 2, "codes"),
+                            (meta, torch.int32, 2, "meta")):
+        _cuda.require(t, dt, nd, name)
+    B = codes.shape[0]
+    KPF = tc.shape[1]
+    if tc.shape[0] != 16 or em.shape != (8, KPF) or scal.shape[0] != 8:
+        raise ValueError("cost rows must be tc [16, KPF], em [8, KPF], "
+                         "scal [8]")
+    if codes.shape[1] != n_rows or meta.shape != (B, 128):
+        raise ValueError("codes/meta shapes disagree with the batch")
+    if n_rows % PACK_ROWS:
+        raise ValueError(f"n_rows {n_rows} must be a multiple of "
+                         f"{PACK_ROWS}")
+    if K + 2 > KPF:
+        raise ValueError(f"profile of {K} positions exceeds the {KPF} "
+                         "staged lanes")
+    lpt, threads = _lanes_per_thread(KPF)
+    if 5 * KPF * 4 > SMEM_LIMIT - 4096:
+        raise ValueError(f"profile of {KPF} lanes exceeds shared memory")
+    dev = codes.device
+    G = n_rows // PACK_ROWS
+    packed = torch.empty((G, B, KPF), dtype=torch.int32, device=dev)
+    sb = torch.empty((B, 8), dtype=torch.int32, device=dev)
+    fn = _cuda.load_library("viterbi").hm_viterbi_planes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    rc = fn(tc.data_ptr(), em.data_ptr(), scal.data_ptr(),
+            codes.data_ptr(), meta.data_ptr(), sb.data_ptr(),
+            packed.data_ptr(), B, n_rows, K, KPF, lpt, threads,
+            _cuda.stream_ptr())
+    _cuda.check_rc(rc, "viterbi_planes")
+    if B:
+        viterbi_planes_cuda.launches.add()
+    sb_f = sb.view(torch.float32)
+    return (sb_f[:, 0], sb_f[:, 1].to(torch.int32),
+            sb_f[:, 2].to(torch.int32), packed)
+
+
+viterbi_planes_cuda.launches = _cuda.LaunchCounter()
+
+
+def viterbi_planes(tc, em, scal, codes, meta, n_rows: int, K: int):
+    """K4 on CUDA tensors, its plain version on CPU tensors."""
+    fn = (viterbi_planes_cuda if codes.device.type == "cuda"
+          else viterbi_planes_plain)
+    return fn(tc, em, scal, codes, meta, n_rows, K)
+
+
 def _dchain_bound(reg: np.ndarray, used: np.ndarray, K: int) -> int:
     """Static power-of-two bound on the longest run of consecutive
     allowed D cells in any DP row: the sum of per-region max widths
@@ -459,3 +563,32 @@ def unpack_emits(emits: np.ndarray) -> np.ndarray:
     for k in range(8):
         out[:, :, k] = ((emits >> (4 * (7 - k))) & 0xF).astype(np.uint8)
     return out.reshape(B, TPS * 8)
+
+
+def unpack_nibble_choices(packed: np.ndarray, n_rows: int,
+                          lanes: int) -> np.ndarray:
+    """Decode [n_rows/8, B, KP] int32 nibble planes to
+    [n_rows, B, lanes] uint8 choice planes (row g*8+r lives in nibble
+    7-r of plane g)."""
+    G, B, KP = packed.shape
+    out = np.empty((G, PACK_ROWS, B, KP), dtype=np.uint8)
+    for r in range(PACK_ROWS):
+        out[:, r] = ((packed >> (4 * (PACK_ROWS - 1 - r))) & 0xF) \
+            .astype(np.uint8)
+    return out.reshape(G * PACK_ROWS, B, KP)[:n_rows, :, :lanes]
+
+
+def traceback_device_packed(packed: torch.Tensor, min_i: torch.Tensor,
+                            min_j: torch.Tensor, K: int, max_steps: int):
+    """Batched traceback walking K4's nibble-packed [G, B, KP] planes on
+    their device: only the [B, max_steps] state strings go to the host
+    (same contract as viterbi.traceback_device)."""
+    G, B, KP = packed.shape
+    ar = torch.arange(B, device=packed.device)
+
+    def fetch(i, j):
+        word = packed[((i - 1) >> 3).clamp(0, G - 1), ar,
+                      j.clamp(0, KP - 1)].to(torch.int64)
+        return (word >> (4 * (7 - ((i - 1) & 7)))) & 15
+
+    return walk_choices(fetch, B, min_i, min_j, K, max_steps)

@@ -1,17 +1,21 @@
 """Batched SEP placement on the device (PyTorch).
 
-Counterpart of hmmufotu_tpu/phylo/placement.py on its fused-kernel
-branch (reference: src/HmmUFOtu_main.cpp:127-216 seed/estimate/filter/
-place, src/PhyloTreeUnrooted.cpp:749-954 the joint 3-branch
-optimization).  A whole read batch x candidate grid runs at once:
+Counterpart of hmmufotu_tpu/phylo/placement.py (reference:
+src/HmmUFOtu_main.cpp:127-216 seed/estimate/filter/place,
+src/PhyloTreeUnrooted.cpp:749-954 the joint 3-branch optimization).  A
+whole read batch x candidate grid runs at once:
 
   seed     : masked-mismatch p-dist of every read against every node
              sequence as one one-hot matrix product, then top-C
              (getSeed, HmmUFOtu_main.cpp:127-152)
-  estimate : kernel K2 at all B x C candidate branches (estimateSeq)
+  estimate : closed form at all B x C candidate branches (estimateSeq):
+             kernel K2, or tensor ops (est_kernel=False)
   filter   : loglik mask vs the per-read best (filterPlacements)
-  place    : kernel K3, the joint 3-branch fixed point with per-lane
-             convergence (optimizeBranchLength)
+  place    : the joint 3-branch fixed point with per-lane convergence
+             (optimizeBranchLength): kernel K3 (sep_kernel=True), or an
+             outer loop of tensor ops whose inner single-branch fixed
+             points run in kernel K5 (fp_kernel=True) or in a tensor-op
+             loop
   Q values : per-read posteriors with per-taxon grouping (calcQValues)
 
 Site windows are fixed-width slices (W) with validity masks.
@@ -26,7 +30,8 @@ import numpy as np
 import torch
 
 from .._cuda import resolve_device
-from .tree import PTUnrooted
+from .cuda_place import SAT_P, _finite_guard
+from .tree import BRANCH_EPS, MAX_ITER, PTUnrooted
 
 INF = float("inf")
 
@@ -95,6 +100,93 @@ class DeviceTree(NamedTuple):
             rates=f(rates), msg_s0=int(s0), seq1h=seq1h, nvalid=nvalid)
 
 
+def _dot_scaled(P: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """log(P @ exp(V)) columnwise with underflow scaling.
+
+    P [..., 4, 4], V [..., 4, W] -> [..., 4, W]
+    (reference dot_product_scaled, PhyloTreeUnrooted.h:1496-1504).  The
+    product stays full f32 (resolve_device turns TF32 off)."""
+    scale = _finite_guard(V.max(dim=-2, keepdim=True).values)
+    return torch.log(P @ torch.exp(V - scale)) + scale
+
+
+def _dot_scaled_vec(log_p: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """log(pi . exp(V)) per column; V [..., 4, W] -> [..., W]."""
+    scale = _finite_guard(V.max(dim=-2, keepdim=True).values)
+    s = torch.exp(log_p[..., :, None] + V - scale).sum(dim=-2)
+    return torch.log(s) + scale[..., 0, :]
+
+
+def _conv_mix(pr_fn, rates: torch.Tensor, msgs) -> torch.Tensor:
+    """Rate-mixed convolution sum (reference loglik + row_mean_exp,
+    PhyloTreeUnrooted.cpp:326-345).
+
+    msgs: list of (msg [..., 4, W], branch_length [...]).
+    Returns the averaged summed message [..., 4, W]."""
+    outs = []
+    for r in rates:
+        s = None
+        for msg, bl in msgs:
+            conv = _dot_scaled(pr_fn(bl * r), msg)
+            s = conv if s is None else s + conv
+        outs.append(s)
+    if len(outs) == 1:
+        return outs[0]
+    X = torch.stack(outs, dim=-1)              # [..., 4, W, K]
+    del outs
+    scale = _finite_guard(X.max(dim=-1, keepdim=True).values)
+    return torch.log(torch.exp(X - scale).mean(dim=-1)) + scale[..., 0]
+
+
+def _fixed_point_branch(log_pi, U, V, w0, site_mask, max_len, skip=None,
+                        use_kernel: bool = False) -> torch.Tensor:
+    """Batched Felsenstein single-branch fixed point
+    (reference optimizeBranchLength(u,v), PhyloTreeUnrooted.cpp:749-798).
+
+    U, V: [..., 4, W]; w0, max_len: [...]; site_mask: [..., W].
+    skip: [...] bool lanes whose result the caller discards (they start
+    converged, so they never hold the batch back).
+    use_kernel: run the iteration in kernel K5 (cuda_fixed_point), else
+    as a loop of tensor ops.  Returns the optimized branch length [...].
+    """
+    logA = _dot_scaled_vec(log_pi, U + V)              # [..., W]
+    logB = _dot_scaled_vec(log_pi, U) + _dot_scaled_vec(log_pi, V)
+    ok = site_mask & ~(torch.isnan(logA) | torch.isnan(logB))
+    scale = torch.maximum(logA, logB)
+    zero = torch.zeros((), dtype=logA.dtype, device=logA.device)
+    eA = torch.where(ok, torch.exp(logA - scale), zero)
+    eB = torch.where(ok, torch.exp(logB - scale), zero)
+    del logA, logB, scale
+    n = torch.clamp(ok.sum(dim=-1), min=1)
+    p = 1.0 - torch.exp(-w0)
+    done = torch.zeros_like(p, dtype=torch.bool) if skip is None else skip
+
+    if use_kernel:
+        from .cuda_fixed_point import fixed_point
+        W = eA.shape[-1]
+        p = fixed_point(eA.reshape(-1, W), eB.reshape(-1, W),
+                        n.reshape(-1), p.reshape(-1),
+                        done.reshape(-1)).reshape(p.shape)
+        return torch.minimum(-torch.log1p(-p), max_len)
+
+    for _ in range(MAX_ITER):
+        if bool(done.all()):
+            break
+        num = eB * p[..., None]
+        den = eA * (1 - p[..., None]) + num
+        frac = torch.where(den > 0, num / den, zero)
+        pn = frac.sum(dim=-1) / n
+        bad = ~((pn >= 0) & (pn <= 1))
+        diff = torch.abs(torch.log1p(-pn) - torch.log1p(-p))
+        # f32 saturation guard: p -> 1 makes log1p(-p) = -inf and the
+        # difference nan; treat saturated lanes as converged (the f64
+        # reference never quite reaches 1, cpp:764-786)
+        conv = (diff < BRANCH_EPS) | ~torch.isfinite(diff) | (pn >= SAT_P)
+        p = torch.where(done | bad, p, pn)
+        done = done | conv | bad
+    return torch.minimum(-torch.log1p(-p), max_len)
+
+
 class OutOfWindowError(ValueError):
     """Raised when a window-resident placer receives reads whose
     placement window falls outside the staged site window; carries the
@@ -143,19 +235,23 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
                        L: int, eig, height_prior: bool = False,
                        ml_only: bool = False, opt_k: int | None = None,
                        s0: int = 0, Ws: int | None = None,
-                       ref_rank: bool = False) -> dict:
-    """Full SEP placement of a read batch (the fused estimate + optimize
-    kernel branch of the reference package).
+                       ref_rank: bool = False, sep_kernel: bool = True,
+                       fp_kernel: bool = True,
+                       est_kernel: bool = True) -> dict:
+    """Full SEP placement of a read batch.
 
     seq_win: [B, W] int8 aligned digital reads, pre-sliced at the
         clamped window start min(start, s0+Ws-W).
     starts/ends: [B] int64 0-based inclusive CS windows.
     eig: (U, U^-1, lam) spectral model tensors (models.eig_tensors).
     (s0, Ws): the batch's union site window (DevicePlacer.union_window).
+    sep_kernel, fp_kernel, est_kernel: which kernels run (see
+    DevicePlacer); the defaults are the fused estimate + optimize path.
     Returns a dict of [B, C'] candidate tensors and the [B, 12] summary.
     """
     from .cuda_place import (est, model_scalars, pad_msgs, sep_optimize,
                              take_padded)
+    fused_est = sep_kernel and est_kernel
     dev = seq_win.device
     B = seq_win.shape[0]
     N = dt.seqs.shape[0]
@@ -226,14 +322,30 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
     ratio0 = torch.where(torch.isnan(ratio0), 0.5, ratio0)
     wur0 = w0 * ratio0
     wvr0 = w0 - wur0
-    padded = pad_msgs(U, V, Nl, site_ok_c)
-    del U, V
     ms = model_scalars(eig[0], eig[1], eig[2], dt.log_pi, dt.rates,
                        n_rates)
-    est_loglik, wnr0 = est(*padded, wur0.reshape(-1), wvr0.reshape(-1),
-                           ms)
-    est_loglik = torch.where(cand_ok, est_loglik.reshape(B, C), -INF)
-    wnr0 = wnr0.reshape(B, C)
+    pr_fn = make_pr_fn(eig)
+    padded = None
+    if fused_est:
+        # the padded kernel-layout copies are built once and shared with
+        # the optimize kernel below
+        padded = pad_msgs(U, V, Nl, site_ok_c)
+        del U, V
+        est_loglik, wnr0 = est(*padded, wur0.reshape(-1),
+                               wvr0.reshape(-1), ms)
+        est_loglik, wnr0 = est_loglik.reshape(B, C), wnr0.reshape(B, C)
+    else:
+        R0 = _dot_scaled(pr_fn(wur0), U) + _dot_scaled(pr_fn(wvr0), V)
+        # unweighted initial pendant estimate (cpp:1018-1031)
+        b1 = R0.argmax(dim=-2)
+        b2 = Nl.argmax(dim=-2)
+        wnr0 = (site_ok_c & (b1 != b2)).sum(-1) \
+            / torch.clamp(site_ok_c.sum(-1), min=1)
+        est_cols = _dot_scaled_vec(dt.log_pi,
+                                   R0 + _dot_scaled(pr_fn(wnr0), Nl))
+        del R0
+        est_loglik = torch.where(site_ok_c, est_cols, 0.0).sum(-1)
+    est_loglik = torch.where(cand_ok, est_loglik, -INF)
 
     # ---- filter (filterPlacements, HmmUFOtu_main.cpp:162-173) -----------
     best_est = est_loglik.max(dim=1, keepdim=True).values
@@ -245,22 +357,68 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
                        descending=True, stable=True).indices[:, :opt_k]
 
     def take_c(x):
-        return torch.gather(x, 1, order)
+        idx = order.reshape(order.shape + (1,) * (x.dim() - 2))
+        return torch.gather(x, 1, idx.expand(order.shape + x.shape[2:]))
 
+    if padded is None:
+        # the [B, C, 4, W] grids are consumed directly; the leaf message
+        # and the site mask are the same for every candidate of a read,
+        # so reordering candidates only narrows them
+        U, V = take_c(U), take_c(V)
+        Nl, site_ok_c = Nl[:, :opt_k], site_ok_c[:, :opt_k]
     cand, c_dist, w0 = take_c(cand), take_c(c_dist), take_c(w0)
-    wur0, wnr0 = take_c(wur0), take_c(wnr0)
+    wur0, wvr0, wnr0 = take_c(wur0), take_c(wvr0), take_c(wnr0)
     est_loglik_k, live = take_c(est_loglik), take_c(live)
 
     # ---- joint 3-branch optimization ------------------------------------
-    padded_k = take_padded(padded, order, C)
-    del padded
-    wur_f, wvr_f, wnr_f, ll = (
-        x.reshape(B, opt_k) for x in sep_optimize(
-            *padded_k, w0.reshape(-1), wur0.reshape(-1), wnr0.reshape(-1),
-            live.reshape(-1), ms, n_rates)[:4])
-    loglik = torch.where(live, ll, -INF)
-    return _finish_placement(dt, cand, c_dist, live, w0, wur_f, wvr_f,
-                             wnr_f, loglik, est_loglik_k, max_height,
+    if sep_kernel:
+        if padded is not None:
+            padded_k = take_padded(padded, order, C)
+            del padded
+        else:
+            padded_k = pad_msgs(U, V, Nl, site_ok_c)
+            del U, V
+        wur_f, wvr_f, wnr_f, ll = (
+            x.reshape(B, opt_k) for x in sep_optimize(
+                *padded_k, w0.reshape(-1), wur0.reshape(-1),
+                wnr0.reshape(-1), live.reshape(-1), ms, n_rates)[:4])
+        loglik = torch.where(live, ll, -INF)
+        return _finish_placement(dt, cand, c_dist, live, w0, wur_f, wvr_f,
+                                 wnr_f, loglik, est_loglik_k, max_height,
+                                 height_prior, ml_only, ref_rank)
+
+    # the outer loop in tensor ops over every lane of the grid; a done
+    # lane keeps its values and the loop ends when all are done
+    rates = dt.rates[:n_rates]
+    wur, wvr, wnr = wur0, wvr0, wnr0
+    done = ~live
+    ones = torch.ones_like(wnr)
+    for _ in range(MAX_ITER):
+        if bool(done.all()):
+            break
+        Rn = _conv_mix(pr_fn, rates, [(U, wur), (V, wvr)])
+        wnr_n = _fixed_point_branch(dt.log_pi, Rn, Nl, wnr, site_ok_c,
+                                    ones, skip=done, use_kernel=fp_kernel)
+        del Rn
+        Ru = _conv_mix(pr_fn, rates, [(V, wvr), (Nl, wnr_n)])
+        wur_n = _fixed_point_branch(dt.log_pi, Ru, U, wur, site_ok_c, w0,
+                                    skip=done, use_kernel=fp_kernel)
+        del Ru
+        wvr_n = w0 - wur_n
+        conv = ((wur_n - wur).abs() < BRANCH_EPS) \
+            & ((wnr_n - wnr).abs() < BRANCH_EPS)
+        bad = ~((wur_n >= 0) & (wur_n <= w0))
+        wur = torch.where(done, wur, wur_n)
+        wvr = torch.where(done, wvr, wvr_n)
+        wnr = torch.where(done, wnr, wnr_n)
+        done = done | conv | bad
+    root_msg = _conv_mix(pr_fn, rates, [(U, wur), (V, wvr), (Nl, wnr)])
+    cols = _dot_scaled_vec(dt.log_pi, root_msg)
+    del root_msg
+    loglik = torch.where(site_ok_c, cols, 0.0).sum(-1)
+    loglik = torch.where(live, loglik, -INF)
+    return _finish_placement(dt, cand, c_dist, live, w0, wur, wvr, wnr,
+                             loglik, est_loglik_k, max_height,
                              height_prior, ml_only, ref_rank)
 
 
@@ -369,10 +527,19 @@ class DevicePlacer:
                  max_nseed: int = 50, device="cuda", msg_dtype=None,
                  opt_k: int | None = None,
                  site_window: tuple[int, int] | None = None,
-                 ref_rank: bool = False):
+                 ref_rank: bool = False, sep_kernel: bool = True,
+                 fp_kernel: bool = True, est_kernel: bool = True):
         """site_window=(s0, Ws): stage only CS columns [s0, s0+Ws) of the
         per-node tensors.  Every placed read's W-wide window must lie
-        inside it; dispatch_win raises OutOfWindowError on violators."""
+        inside it; dispatch_win raises OutOfWindowError on violators.
+
+        sep_kernel, fp_kernel, est_kernel (the reference package's
+        sep_pallas, fp_pallas, est_kernel) choose the optimize path:
+        sep_kernel=True runs the whole 3-branch optimization in kernel
+        K3 (subsuming fp_kernel), fed by the estimate kernel K2 or, with
+        est_kernel=False, by the tensor-op estimate; sep_kernel=False
+        runs the outer loop in tensor ops, its inner fixed points in
+        kernel K5 (fp_kernel=True) or in a tensor-op loop."""
         from .models import eig_tensors
         self.device = resolve_device(device)
         self.tree = tree
@@ -380,6 +547,9 @@ class DevicePlacer:
         self.C = max_nseed
         self.ref_rank = ref_rank
         self.opt_k = opt_k
+        self.sep_kernel = sep_kernel
+        self.fp_kernel = fp_kernel
+        self.est_kernel = est_kernel
         if site_window is not None:
             s0, Ws = site_window
             Ws = min(Ws, tree.cs_len - s0)
@@ -441,7 +611,8 @@ class DevicePlacer:
             to(ends, np.int64), max_diff, max_height, max_error, self.W,
             self.C, self.n_rates, self.tree.cs_len, self.eig,
             height_prior, ml_only, opt_k=self.opt_k, s0=s0, Ws=Ws,
-            ref_rank=self.ref_rank)
+            ref_rank=self.ref_rank, sep_kernel=self.sep_kernel,
+            fp_kernel=self.fp_kernel, est_kernel=self.est_kernel)
 
     def place_batch(self, seqs: np.ndarray, starts: np.ndarray,
                     ends: np.ndarray, max_diff: float = math.inf,

@@ -1,13 +1,15 @@
-"""The CUDA kernels K1, K2 and K3 against their plain PyTorch versions on
-the same CUDA tensors, and their launch counters.  These tests need an
+"""The CUDA kernels K1 to K5 against their plain PyTorch versions on the
+same CUDA tensors, and their launch counters.  These tests need an
 NVIDIA GPU (and nvcc, which builds the kernels at first use) and skip
 without one; on a machine with a card run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-They import nothing of JAX.  Tolerances: K1's comb is bit-equal; K2 and
-K3 as in test_torch_place.py, since the kernels sum sites in block
-reductions and the plain versions in torch's order."""
+They import nothing of JAX.  Tolerances: K1's comb and K4's planes are
+bit-equal; K2 and K3 as in test_torch_place.py, since the kernels sum
+sites in block reductions and the plain versions in torch's order; K5's
+p within 1e-6 absolute + 1e-5 relative for the same reason (a lane may
+also stop one step apart inside BRANCH_EPS of its limit)."""
 
 import os
 
@@ -119,3 +121,55 @@ def test_sep_kernel_matches_plain(db, n_rates):
     torch.testing.assert_close(got[3][lv], want[3][lv], rtol=LL_RTOL,
                                atol=LL_ATOL)
     assert all(bool((got[q][~lv] == 0).all()) for q in range(6))
+
+
+@pytest.mark.parametrize("unseeded", [(), (1, 5)])
+def test_planes_kernel_matches_plain(db, unseeded):
+    """K4: score, min_i, min_j and the packed planes bit-equal to the
+    plain version on the same CUDA tensors; the host-traceback aligner
+    gives the alignments of the default aligner."""
+    from hmmufotu_tpu_torch import pipeline as pl
+    from hmmufotu_tpu_torch.hmm import NGCL, ViterbiAligner
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    reads = simulate_reads(db.ptu, 16, seed=7 + len(unseeded))
+    vp = pl.batch_find_seed_vpaths(db.hmm, db.csfm, reads, mode=NGCL)
+    for r in unseeded:
+        vp[r] = None
+    host = ViterbiAligner(db.hmm, device="cuda", traceback_mode="host")
+    n0 = cv.viterbi_planes_cuda.launches.n
+    h = host.dispatch_batch(reads, vp)
+    torch.cuda.synchronize()
+    assert cv.viterbi_planes_cuda.launches.n == n0 + 1
+    tc, em, scal = host.staged
+    args = (tc, em, scal, torch.from_numpy(h[2]).cuda(),
+            torch.from_numpy(cv.make_meta(h[3], h[4])).cuda(), h[1],
+            db.hmm.K)
+    for a, b in zip(cv.viterbi_planes_cuda(*args),
+                    cv.viterbi_planes_plain(*args)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    want = ViterbiAligner(db.hmm, device="cuda").align_batch(reads, vp)
+    for a, b in zip(host.finalize_batch(h), want):
+        assert (a.align, a.cost) == (b.align, b.cost)
+
+
+def test_fixed_point_kernel_matches_plain(cuda):
+    from hmmufotu_tpu_torch.phylo import cuda_fixed_point as cf
+    rng = np.random.default_rng(5)
+    M, W = 1003, 512
+    ok = rng.random((M, W)) < 0.5
+    ok[7] = False                                  # n clamps to 1
+    eA = np.where(ok, rng.uniform(0.01, 1.0, (M, W)), 0).astype(np.float32)
+    eB = np.where(ok, rng.uniform(0.01, 1.0, (M, W)), 0).astype(np.float32)
+    eA[11] = np.where(ok[11], 1e-30, 0)            # saturates at p -> 1
+    n = np.maximum(ok.sum(1), 1).astype(np.float32)
+    p0 = rng.uniform(0.01, 0.5, M).astype(np.float32)
+    skip = rng.random(M) < 0.5
+    skip[[7, 11]] = False
+    args = tuple(torch.from_numpy(a).cuda() for a in (eA, eB, n, p0, skip))
+    n0 = cf.fixed_point_cuda.launches.n
+    got = cf.fixed_point(*args)
+    torch.cuda.synchronize()
+    assert cf.fixed_point_cuda.launches.n == n0 + 1
+    want = cf.fixed_point_plain(*args)
+    assert torch.equal(got[args[4]], args[3][args[4]])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

@@ -24,6 +24,9 @@ ref = sorted(m for m in sys.modules
              if m == "hmmufotu_tpu" or m.startswith("hmmufotu_tpu."))
 assert not ref, ref
 assert sys.modules["jax"] is None
+for name in ("hmm.viterbi", "hmm.cuda_viterbi", "phylo.placement",
+             "phylo.cuda_place", "phylo.cuda_fixed_point"):
+    assert "hmmufotu_tpu_torch." + name in names, name
 print(len(names))
 """
 
