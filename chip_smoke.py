@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
   1. card     nvidia-smi name and power limit, torch and CUDA versions;
   2. build    nvcc builds every kernel of hmmufotu_tpu_torch/csrc;
   3. fixture  the 70_otus DB (GTR+dGamma4) built with the port's builder;
-  4. kernels  K1 (banded Viterbi, narrow and wide launches, 3 and 5
-              region slots), K2 (estimate), K3 (SEP optimize, 1 and 4
+  4. kernels  K1 (banded Viterbi, narrow and wide launches timed one by
+              one, 3 and 5 region slots), K2 (estimate), K3 (SEP optimize,
+              1 and 4
               Gamma rates), K4 (choice-plane Viterbi, and the host walk
               over its planes against K1's tracebacks) and K5 (single-
               branch fixed point) on inputs captured from the two paths
@@ -26,7 +27,9 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
   7. scale    a synthetic DB of 16,384 leaves x 1,600 columns (GTR+dGamma4,
               leaf sequences evolved down the tree), 8,192 simulated
               250 bp reads in batches of 2,048: reads/s, per-kernel
-              launches and CUDA-event time, peak device memory, and 64
+              launches and CUDA-event time (K1 by launch width; K3 by
+              launch with its live lanes, trip counts and bound), peak
+              device memory, the host-clock stages of one batch, and 64
               reads compared with a CPU run.
 
 Prints one `kernels` JSON line before the last and, as the last line,
@@ -293,17 +296,19 @@ def compare_runs(gpu, cpu, max_node_frac, cost_rtol=0.0):
                     max_loglik_diff=max_ll, max_ratio_diff=max_ratio)
 
 
-def mode_stages(db, reads):
-    """Seconds of each stage of the second path on one batch, run one
-    after the other with the device drained in between: seed search, K4
-    DP, plane download + host walk + alignment strings, placement."""
+def batch_stages(db, reads, dp_name, finish_name, aligner_kw=None,
+                 placer_kw=None):
+    """Seconds of each stage of one batch through a path, run one after
+    the other with the device drained in between: seed search, the DP
+    dispatch (encode, upload, kernel), the aligner's finish (download,
+    any host walk, alignment strings), placement."""
     import torch
     from hmmufotu_tpu_torch import pipeline as pl
     from hmmufotu_tpu_torch.hmm import NGCL, ViterbiAligner
     from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
-    aligner = ViterbiAligner(db.hmm, device="cuda", traceback_mode="host")
+    aligner = ViterbiAligner(db.hmm, device="cuda", **(aligner_kw or {}))
     placer = DevicePlacer(db.ptu, window=512, device="cuda",
-                          sep_kernel=False, fp_kernel=True)
+                          **(placer_kw or {}))
     out = {}
 
     def stage(name, fn):
@@ -315,9 +320,8 @@ def mode_stages(db, reads):
 
     vp = stage("seed_s", lambda: pl.batch_find_seed_vpaths(
         db.hmm, db.csfm, reads, mode=NGCL))
-    h = stage("dp_s", lambda: aligner.dispatch_batch(reads, vp))
-    alns = stage("download_walk_strings_s",
-                 lambda: aligner.finalize_batch(h))
+    h = stage(dp_name, lambda: aligner.dispatch_batch(reads, vp))
+    alns = stage(finish_name, lambda: aligner.finalize_batch(h))
     stage("place_s", lambda: pl.assign_batch_device(db.ptu, placer, alns))
     return out
 
@@ -397,11 +401,31 @@ def capture_calls():
     return calls, patch
 
 
+def sep_sites(maskp):
+    """Masked sites of each K3 lane, [M] on the device."""
+    return (maskp > 0.5).sum(1)
+
+
+def launch_notes():
+    """What event_timers keeps of a launch beside its events: K1's batch
+    and lane width; K3's mask, live lanes, rates and trip counts.  Only
+    references are kept, so a note puts no work on the stream of the run
+    it watches; scale_launch_report reads them after the run."""
+    return {
+        "viterbi_traced": lambda a, out: (a[3].shape[0], a[8]),
+        "sep_optimize": lambda a, out: (a[3], a[7], a[9], out[4], out[5]),
+    }
+
+
 def event_timers():
     """Wrap every CUDA launcher so that each launch is bracketed by CUDA
-    events on the launching stream."""
+    events on the launching stream.  Returns (events, notes, patch):
+    events[name] the (start, end) pairs, notes[name] the launch_notes
+    entry of each launch, taken after the end event."""
     import torch
     events = {name: [] for name in kernel_table()}
+    notes = {name: [] for name in kernel_table()}
+    note_fns = launch_notes()
 
     def timed(key, fn):
         def wrapper(*args):
@@ -411,6 +435,8 @@ def event_timers():
             out = fn(*args)
             e.record()
             events[key].append((s, e))
+            if key in note_fns:
+                notes[key].append(note_fns[key](args, out))
             return out
         # the launcher counts through its module-level name, which now
         # resolves to this wrapper
@@ -419,7 +445,7 @@ def event_timers():
 
     patch = Patch(*((mod, attr, timed(name, getattr(mod, attr)))
                     for name, (mod, attr, _, _) in kernel_table().items()))
-    return events, patch
+    return events, notes, patch
 
 
 def counters():
@@ -450,6 +476,20 @@ def cuda_ms(fn, reps: int) -> float:
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def cuda_once(fn):
+    """(result, ms) of one call, by CUDA events: the plain versions are
+    run once, for the comparison, and that run is their time."""
+    import torch
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
 
 
 def dp_cells(meta, n_rows, K, n_regions) -> int:
@@ -487,24 +527,27 @@ def check_k1(calls, label):
     """Kernel vs plain on every recorded K1 call: comb bit-equal."""
     import torch
     from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
-    res = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, max_abs_err=0.0)
+    res = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, max_abs_err=0.0,
+               launch_ms=[])
     for call in calls:
         got = cv.viterbi_traced_cuda(*call)
-        want = cv.viterbi_traced_plain(*call)
-        torch.cuda.synchronize()
+        want, plain_ms = cuda_once(lambda: cv.viterbi_traced_plain(*call))
         if got.shape != want.shape or not torch.equal(got, want):
             bad = (got != want).any(1).nonzero().flatten()[:8].tolist()
             raise AssertionError(f"K1 {label}: comb differs from the plain "
                                  f"version in rows {bad}")
-        res["ms"] += cuda_ms(lambda: cv.viterbi_traced_cuda(*call), 5)
-        res["plain_ms"] += cuda_ms(lambda: cv.viterbi_traced_plain(*call),
-                                   1)
+        ms = cuda_ms(lambda: cv.viterbi_traced_cuda(*call), 5)
+        res["ms"] += ms
+        res["launch_ms"].append({"reads": call[3].shape[0],
+                                 "lanes": call[8], "ms": ms})
+        res["plain_ms"] += plain_ms
         tc, em, scal, codes, meta, jb = call[:6]
         res["bytes"] += nbytes(tc, em, scal, codes, meta, jb, got)
         res["ops"] += K1_OPS_PER_CELL * dp_cells(meta, call[6], call[7],
                                                  call[10])
         log(f"  K1 {label}: B={codes.shape[0]} n_rows={call[6]} KP={call[8]}"
-            f" n_regions={call[10]} dchain={call[11]}: comb bit-equal")
+            f" n_regions={call[10]} dchain={call[11]}: comb bit-equal, "
+            f"{ms:.3f} ms")
     return res
 
 
@@ -512,8 +555,7 @@ def check_k2(call):
     import torch
     from hmmufotu_tpu_torch.phylo import cuda_place as cp
     est_k, wnr_k = cp.est_cuda(*call)
-    est_p, wnr_p = cp.est_plain(*call)
-    torch.cuda.synchronize()
+    (est_p, wnr_p), plain_ms = cuda_once(lambda: cp.est_plain(*call))
     Up, Vp, Np, maskp, wur0, wvr0, ms = call
     cand_ok = torch.isfinite(est_p)
     if not torch.equal(torch.isfinite(est_k), cand_ok):
@@ -526,7 +568,7 @@ def check_k2(call):
                              f"wnr0 {float(e_wnr.max())}")
     sites = int((maskp > 0.5).sum())
     res = dict(ms=cuda_ms(lambda: cp.est_cuda(*call), 5),
-               plain_ms=cuda_ms(lambda: cp.est_plain(*call), 1),
+               plain_ms=plain_ms,
                bytes=nbytes(Up, Vp, Np, maskp, wur0, wvr0, ms)
                + 2 * 4 * maskp.shape[0],
                ops=sites * K2_OPS_PER_SITE,
@@ -536,12 +578,31 @@ def check_k2(call):
     return res
 
 
+def k3_work(sites, lv, n_rates, outer, inner, Wp, M):
+    """(bytes, operations) a K3 launch needs for this data: the live
+    lanes' messages and mask read once and every lane's scalars and
+    outputs; per live lane and masked site, two branch set-ups an outer
+    trip, a fixed-point step an inner trip and the root loglik.  sites [M]
+    masked sites, lv [M] live, outer/inner [M] trip counts."""
+    import torch
+    n_live = int(lv.sum())
+    NR = n_rates
+    mix = 4 * (3 * NR + 3) if NR > 1 else 0
+    setup = NR * 2 * CONV_OPS + mix + 3 * DOT_OPS + 8
+    final = NR * 3 * CONV_OPS + mix + DOT_OPS
+    o, i = outer[lv].double(), inner[lv].double()
+    ops = float((sites[lv].to(torch.float64)
+                 * (o * 2 * setup + i * FP_STEP_OPS + final)).sum())
+    n_bytes = n_live * (12 * Wp + Wp) * 4 + M * (3 * 4 + 1) + 64 * 4 \
+        + 6 * 4 * M
+    return n_bytes, ops
+
+
 def check_k3(call, label):
     import torch
     from hmmufotu_tpu_torch.phylo import cuda_place as cp
     got = cp.sep_cuda(*call)
-    want = cp.sep_plain(*call)
-    torch.cuda.synchronize()
+    want, plain_ms = cuda_once(lambda: cp.sep_plain(*call))
     Up, Vp, Np, maskp, w0, wur0, wnr0, live, ms, n_rates = call
     lv = live.reshape(-1)
     errs = [float((got[q] - want[q])[lv].abs().max()) if bool(lv.any())
@@ -553,23 +614,19 @@ def check_k3(call, label):
         raise AssertionError(f"K3 {label} disagrees: wur/wvr/wnr/loglik "
                              f"max err {errs}, dead lanes zero {dead_zero}")
     n_live = int(lv.sum())
-    Wp = maskp.shape[1]
-    sites = (maskp[lv] > 0.5).sum(1).to(torch.float64)
-    NR = n_rates
-    mix = 4 * (3 * NR + 3) if NR > 1 else 0
-    setup = NR * 2 * CONV_OPS + mix + 3 * DOT_OPS + 8
-    final = NR * 3 * CONV_OPS + mix + DOT_OPS
-    outer, inner = got[4][lv].double(), got[5][lv].double()
-    ops = float((sites * (outer * 2 * setup + inner * FP_STEP_OPS
-                          + final)).sum())
+    outer = got[4][lv].double()
+    n_bytes, ops = k3_work(sep_sites(maskp), lv, n_rates, got[4], got[5],
+                           maskp.shape[1], lv.numel())
     res = dict(ms=cuda_ms(lambda: cp.sep_cuda(*call), 3),
-               plain_ms=cuda_ms(lambda: cp.sep_plain(*call), 1),
-               bytes=n_live * (12 * Wp + Wp) * 4
-               + nbytes(w0, wur0, wnr0, live, ms) + 6 * 4 * lv.numel(),
-               ops=ops, max_abs_err=max(errs))
+               plain_ms=plain_ms,
+               bytes=n_bytes, ops=ops, max_abs_err=max(errs))
+    same = [float((got[q][lv] == want[q][lv]).double().mean())
+            if n_live else 1.0 for q in (4, 5)]
     log(f"  K3 {label}: M={lv.numel()} live={n_live} n_rates={n_rates}: "
         f"wur/wvr/wnr/loglik max err {[f'{e:.3g}' for e in errs]}, "
-        f"mean outer trips {float(outer.mean()) if n_live else 0:.2f}")
+        f"mean outer trips {float(outer.mean()) if n_live else 0:.2f}, "
+        f"lanes with the plain version's outer/inner trip counts "
+        f"{same[0]:.4f}/{same[1]:.4f}")
     return res
 
 
@@ -608,8 +665,7 @@ def check_k4(db, reads):
     args = (tc, em, scal, to(codes), to(cv.make_meta(lengths, regions)),
             n_rows, K)
     got = cv.viterbi_planes_cuda(*args)
-    want = cv.viterbi_planes_plain(*args)
-    torch.cuda.synchronize()
+    want, plain_ms = cuda_once(lambda: cv.viterbi_planes_plain(*args))
     for name, a, b in zip(("score", "min_i", "min_j", "planes"), got, want):
         if a.shape != b.shape or a.dtype != b.dtype \
                 or not torch.equal(a, b):
@@ -627,7 +683,7 @@ def check_k4(db, reads):
                              "finite)")
     del want
     res = dict(ms=cuda_ms(lambda: cv.viterbi_planes_cuda(*args), 5),
-               plain_ms=cuda_ms(lambda: cv.viterbi_planes_plain(*args), 1),
+               plain_ms=plain_ms,
                bytes=nbytes(*args[:5], got[3]) + 8 * 4 * len(reads),
                ops=K1_OPS_PER_CELL * dp_cells(args[4], n_rows, K,
                                               MAX_REGIONS),
@@ -670,8 +726,7 @@ def check_k5(call):
     from hmmufotu_tpu_torch.phylo import cuda_fixed_point as cf
     eA, eB, n, p_init, skip = call
     got = cf.fixed_point_cuda(*call)
-    want = cf.fixed_point_plain(*call)
-    torch.cuda.synchronize()
+    want, plain_ms = cuda_once(lambda: cf.fixed_point_plain(*call))
     err = (got - want).abs()
     if not bool(torch.isfinite(got).all()) \
             or bool((err > FP_ATOL + FP_RTOL * want.abs()).any()) \
@@ -683,7 +738,7 @@ def check_k5(call):
     sites = ((eA[live] > 0) | (eB[live] > 0)).sum(1).double()
     M, W = eA.shape
     res = dict(ms=cuda_ms(lambda: cf.fixed_point_cuda(*call), 5),
-               plain_ms=cuda_ms(lambda: cf.fixed_point_plain(*call), 1),
+               plain_ms=plain_ms,
                bytes=n_live * 2 * W * 4 + M * 4 * 4,
                ops=float((sites * trips[live].double()).sum())
                * FP_STEP_OPS,
@@ -744,6 +799,36 @@ def kernel_phase(db, reads):
     k4 = check_k4(db, reads)
     return {"viterbi_traced": k1, "est": k2, "sep_optimize": k3,
             "viterbi_planes": k4, "fixed_point": k5}, main_run
+
+
+def scale_launch_report(events, notes):
+    """Log the main path's K1 launches by lane width and each K3 launch
+    with its live lanes, trip counts and bound at that shape.  Returns the
+    two lists of per-launch records."""
+    k1 = [{"reads": B, "lanes": KP, "ms": s.elapsed_time(e)}
+          for (s, e), (B, KP) in zip(events["viterbi_traced"],
+                                     notes["viterbi_traced"])]
+    by_width = {}
+    for rec in k1:
+        by_width.setdefault(rec["lanes"], []).append(rec["ms"])
+    log("[scale] K1 launches by lane width: " + "; ".join(
+        f"{kp} lanes: {len(v)} launches, mean {sum(v) / len(v):.3f} ms"
+        for kp, v in sorted(by_width.items())))
+    k3 = []
+    for (s, e), (maskp, live, n_rates, outer, inner) in zip(
+            events["sep_optimize"], notes["sep_optimize"]):
+        lv = live.reshape(-1)
+        n_bytes, ops = k3_work(sep_sites(maskp), lv, n_rates, outer, inner,
+                               maskp.shape[1], lv.numel())
+        b_ms, b_by = bound(n_bytes, ops)
+        o, i = outer[lv], inner[lv]
+        rec = {"lanes": lv.numel(), "live": int(lv.sum()),
+               "outer_mean": float(o.mean()), "outer_max": int(o.max()),
+               "inner_mean": float(i.mean()), "inner_max": int(i.max()),
+               "ms": s.elapsed_time(e), "bound_ms": b_ms, "bound_by": b_by}
+        k3.append(rec)
+        log(f"[scale] K3 launch: {json.dumps(rec)}")
+    return k1, k3
 
 
 # ---------------------------------------------------------------------------
@@ -827,7 +912,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cnt = reset_counters()
-    events, patch = event_timers()
+    events, notes, patch = event_timers()
     with patch:
         t = time.time()
         modes = run_assign(db, reads, "cuda", BATCH, **mode_kw)
@@ -854,8 +939,10 @@ def main() -> int:
     log(f"[modes] vs the main path, read for read: {json.dumps(stats)}")
     if not ok:
         raise AssertionError("the second path disagrees with the main path")
+    stages = batch_stages(db, reads, "dp_s", "download_walk_strings_s",
+                          **mode_kw)
     log(f"[modes] stages of the same batch, host clock: "
-        f"{json.dumps(mode_stages(db, reads))}")
+        f"{json.dumps(stages)}")
     sub = reads[:N_MODE_READS]
     main_sub = (main_run[0][:len(sub)], main_run[1][:len(sub)])
     for label, kw, cost_rtol in (
@@ -896,7 +983,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cnt = reset_counters()
-    events, patch = event_timers()
+    events, notes, patch = event_timers()
     with patch:
         t = time.time()
         sgpu = run_assign(sdb, s_reads, "cuda", BATCH)
@@ -906,16 +993,27 @@ def main() -> int:
     kernel_ms = {k: sum(s.elapsed_time(e) for s, e in events[k])
                  for k in MAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated()
+    # the launch report's references keep earlier batches' K3 masks alive
+    held = nbytes(*(n[0] for n in notes["sep_optimize"][:-1]))
     n_placed = sum(b is not None for b in sgpu[1])
     log(f"[scale] {len(s_reads)} reads in {dt:.2f} s: "
         f"{len(s_reads) / dt:.1f} reads/s, {n_placed} placed; launches "
         f"{launches}; kernel time ms "
         f"{json.dumps({k: round(v, 3) for k, v in kernel_ms.items()})}; "
-        f"peak device memory {peak / 2**30:.2f} GiB")
+        f"peak device memory {peak / 2**30:.2f} GiB, at most "
+        f"{held / 2**30:.2f} GiB of it K3 masks kept for the launch report")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    t = time.time()
+    scale_k1, scale_k3 = scale_launch_report(events, notes)
+    del events, notes
     if n_placed < 0.9 * len(s_reads):
         raise AssertionError(f"only {n_placed} reads placed")
+    stages = batch_stages(sdb, s_reads[:BATCH], "dp_dispatch_s",
+                          "download_strings_s")
+    log(f"[scale] stages of one batch of {BATCH}, host clock, device "
+        f"drained between them: {json.dumps(stages)}")
+    log(f"[scale] launch report and stages took {time.time() - t:.1f} s")
     sub = s_reads[:N_SCALE_CPU_READS]
     ok, stats = compare_runs(
         (sgpu[0][:len(sub)], sgpu[1][:len(sub)]),
@@ -940,6 +1038,13 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
             "path_total_ms": kernel_ms[name]})
+        if "launch_ms" in r:
+            kernels[-1]["launch_ms"] = r["launch_ms"]
+    for k in kernels:
+        if k["name"] == "viterbi_traced":
+            k["path_launches"] = scale_k1
+        if k["name"] == "sep_optimize":
+            k["path_launches"] = scale_k3
     log(f"[done] {time.time() - t_all:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -295,14 +295,16 @@ def viterbi_traced_plain(tc, em, scal, codes, meta, jb, n_rows: int,
 
 
 def _lanes_per_thread(KP: int) -> tuple[int, int]:
-    for lpt in (1, 2, 4, 8):
-        if -(-KP // lpt) <= 512:
-            break
-    threads = _round_up(-(-KP // lpt), 32)
-    if threads > 1024:
-        raise ValueError(f"band of {KP} lanes exceeds the kernel's "
-                         "8 lanes x 1024 threads")
-    return lpt, threads
+    """(lanes a thread, threads) of a launch over KP lanes, among the
+    shapes csrc/viterbi.cu is built for: 1 lane up to 512 threads, 2 up
+    to 768 (the full profile width of a 16S model), 4 up to 512, 8 up to
+    1,024."""
+    for lpt, most in ((1, 512), (2, 768), (4, 512), (8, 1024)):
+        threads = _round_up(-(-KP // lpt), 32)
+        if threads <= most:
+            return lpt, threads
+    raise ValueError(f"band of {KP} lanes exceeds the kernel's "
+                     "8 lanes x 1024 threads")
 
 
 def viterbi_traced_cuda(tc, em, scal, codes, meta, jb, n_rows: int,

@@ -2,10 +2,12 @@
 3-branch optimization), each as CUDA C++ (csrc/place.cu) beside its
 plain PyTorch version.
 
-Counterpart of hmmufotu_tpu/phylo/pallas_place.py.  Both kernels take
-one candidate lane per CUDA block, with the lane's [4, W] up, down and
-leaf message windows in the kernel layout built by pad_msgs /
-take_padded: [4, M, Wp] f32 planes and an [M, Wp] f32 site mask.
+Counterpart of hmmufotu_tpu/phylo/pallas_place.py.  K2 takes one
+candidate lane per CUDA block; K3's blocks take the live lanes one after
+the other off a list built on the device (live_lane_list).  Both read
+the lane's [4, W] up, down and leaf message windows in the kernel layout
+built by pad_msgs / take_padded: [4, M, Wp] f32 planes and an [M, Wp]
+f32 site mask.
 
   * P(t) = U exp(lam t) U^-1 (the spectral form of every reference
     model, models.eig_tensors) convolved with the messages with the
@@ -310,6 +312,24 @@ def est_cuda(Up, Vp, Np, maskp, wur0, wvr0, model_s):
 est_cuda.launches = _cuda.LaunchCounter()
 
 
+def live_lane_list(live):
+    """(lanes [M + 1] int32, ctrl [2] int32) of a K3 launch, built on the
+    device without a host round trip: the indices of the live lanes in
+    order in lanes[:n_live], and ctrl = (n_live, 0), the kernel's work
+    counter starting at 0."""
+    lv = live.reshape(-1).to(torch.bool)
+    M = lv.shape[0]
+    dev = lv.device
+    pos = torch.cumsum(lv, 0, dtype=torch.int64)
+    slot = torch.where(lv, pos - 1, M)          # dead lanes to a spare slot
+    lanes = torch.empty(M + 1, dtype=torch.int32, device=dev)
+    lanes.scatter_(0, slot, torch.arange(M, dtype=torch.int32, device=dev))
+    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
+    if M:
+        ctrl[0] = pos[-1]
+    return lanes, ctrl
+
+
 def sep_cuda(Up, Vp, Np, maskp, w0, wur0, wnr0, live, model_s,
              n_rates: int):
     """Launch K3 (csrc/place.cu hm_sep); same contract as sep_plain."""
@@ -318,14 +338,17 @@ def sep_cuda(Up, Vp, Np, maskp, w0, wur0, wnr0, live, model_s,
         raise ValueError("the kernel is built for 1 or 4 Gamma rates")
     M, Wp = maskp.shape
     f = lambda x: x.reshape(-1).to(torch.float32)
-    scal = torch.stack([f(w0), f(wur0), f(wnr0),
-                        f(~live.reshape(-1))], dim=1).contiguous()
+    scal = torch.stack([f(w0), f(wur0), f(wnr0)], dim=1).contiguous()
     _cuda.require(model_s, torch.float32, 1, "model_s")
-    out = torch.empty((M, 8), dtype=torch.float32, device=Up.device)
-    rc = _fn("hm_sep", 7, 3)(
+    if live.device != Up.device or live.numel() != M:
+        raise ValueError("live must be [M] on the messages' device")
+    lanes, ctrl = live_lane_list(live)
+    out = torch.zeros((M, 8), dtype=torch.float32, device=Up.device)
+    rc = _fn("hm_sep", 9, 3)(
         Up.data_ptr(), Vp.data_ptr(), Np.data_ptr(), maskp.data_ptr(),
-        scal.data_ptr(), model_s.data_ptr(), out.data_ptr(), M, Wp,
-        n_rates, _cuda.stream_ptr())
+        scal.data_ptr(), model_s.data_ptr(), lanes.data_ptr(),
+        ctrl.data_ptr(), out.data_ptr(), M, Wp, n_rates,
+        _cuda.stream_ptr())
     _cuda.check_rc(rc, "sep")
     if M:
         sep_cuda.launches.add()

@@ -81,6 +81,51 @@ def test_viterbi_kernel_matches_plain(db, unseeded):
         assert (a.align, a.cost) == (b.align, b.cost)
 
 
+# (band lanes, D-chain bound) of the row loop's special shapes: a band that
+# is not a multiple of the warp's 32 lanes, a band past one lane a thread,
+# and the chain cut below, at and past a warp's reach and unbounded
+ROW_SHAPES = [(200, 1 << 30), (384, 1), (384, 2), (384, 32), (384, 33),
+              (384, 1 << 30), (600, 33), (1408, 1 << 30)]
+
+
+@pytest.mark.parametrize("KP,dchain", ROW_SHAPES)
+def test_viterbi_kernel_row_shapes(db, KP, dchain):
+    """K1 bit-equal to its plain version at each shape, with a read of
+    length 1, one that stops inside the batch and reads that fill every
+    row; K4 on the same reads."""
+    from hmmufotu_tpu_torch import pipeline as pl
+    from hmmufotu_tpu_torch.hmm import NGCL, ViterbiAligner
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    reads = simulate_reads(db.ptu, 12, seed=KP + min(dchain, 99), length=96)
+    vp = pl.batch_find_seed_vpaths(db.hmm, db.csfm, reads, mode=NGCL)
+    vp[5] = None                                    # one full-DP read
+    al = ViterbiAligner(db.hmm, device="cuda")
+    n_rows = 96
+    codes, lengths, regions = al._encode(reads, vp, n_rows)
+    lengths[0], lengths[2] = 1, 37
+    K = db.hmm.K
+    used = regions[:, :, 1] > 0
+    jlo = np.where(used, np.maximum(regions[:, :, 0], 1), 1 << 30).min(1)
+    jb = np.maximum(jlo - 1, 0).astype(np.int32)
+    if KP == 1408:
+        jb[:] = 0
+    tc, em, scal = al.staged
+    assert KP <= tc.shape[1]
+    _, max_steps, _ = cv.launch_shape(K, n_rows, KP)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+    meta = to(cv.make_meta(lengths, regions))
+    args = (tc, em, scal, to(codes), meta, to(jb), n_rows, K, KP,
+            max_steps, 5, dchain)
+    got = cv.viterbi_traced_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cv.viterbi_traced_plain(*args))
+    if KP == 1408:
+        pargs = (tc, em, scal, to(codes), meta, n_rows, K)
+        for a, b in zip(cv.viterbi_planes_cuda(*pargs),
+                        cv.viterbi_planes_plain(*pargs)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_est_kernel_matches_plain(db):
     from hmmufotu_tpu_torch.phylo import cuda_place as cp
     U, V, Nl, site_ok, w0, wur0, wvr0 = lane_inputs(db.ptu)
@@ -121,6 +166,36 @@ def test_sep_kernel_matches_plain(db, n_rates):
     torch.testing.assert_close(got[3][lv], want[3][lv], rtol=LL_RTOL,
                                atol=LL_ATOL)
     assert all(bool((got[q][~lv] == 0).all()) for q in range(6))
+
+
+@pytest.mark.parametrize("n_rates", [1, 4])
+@pytest.mark.parametrize("which", ["no-lane-live", "every-lane-live"])
+def test_sep_kernel_live_extremes(db, which, n_rates):
+    """No live lane: zeros, and the launch still counts; every lane live:
+    all of them within the tolerance."""
+    from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    U, V, Nl, site_ok, w0, wur0, _ = lane_inputs(db.ptu, B=4, C=16, seed=5)
+    wnr0 = np.random.default_rng(7).uniform(0.0, 0.2, w0.shape) \
+        .astype(np.float32)
+    live = np.full(w0.shape, which == "every-lane-live")
+    _, ms = model_inputs(db.ptu, n_rates)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).reshape(-1)) \
+        .cuda()
+    args = tuple(x.cuda() for x in port_lanes(U, V, Nl, site_ok)) + (
+        t(w0), t(wur0), t(wnr0), t(live), ms.cuda(), n_rates)
+    n0 = cp.sep_cuda.launches.n
+    got = cp.sep_cuda(*args)
+    torch.cuda.synchronize()
+    assert cp.sep_cuda.launches.n == n0 + 1
+    if which == "no-lane-live":
+        assert all(bool((g == 0).all()) for g in got)
+        return
+    want = cp.sep_plain(*args)
+    for q in range(3):
+        torch.testing.assert_close(got[q], want[q], rtol=0,
+                                   atol=BRANCH_ATOL)
+    torch.testing.assert_close(got[3], want[3], rtol=LL_RTOL, atol=LL_ATOL)
+    assert bool((got[4] >= 1).all()) and bool((got[5] >= 2).all())
 
 
 @pytest.mark.parametrize("unseeded", [(), (1, 5)])

@@ -165,6 +165,57 @@ def test_sep_plain_matches_pallas_interpret(trees, n_rates):
     assert (got[4].numpy()[lv] >= 1).all()
 
 
+@pytest.mark.parametrize("n_rates", [1, 4])
+@pytest.mark.parametrize("which", ["no-lane-live", "every-lane-live"])
+def test_sep_plain_live_extremes(trees, which, n_rates):
+    """A batch with no live lane is all zeros without touching a message;
+    one with every lane live agrees with the reference on all of them."""
+    import jax.numpy as jnp
+    from hmmufotu_tpu.phylo.pallas_place import sep_optimize_pallas
+    from hmmufotu_tpu_torch.phylo.cuda_place import sep_plain
+    ref_tree, tree = trees
+    U, V, Nl, site_ok, w0, wur0, _ = lane_inputs(ref_tree, B=2, C=3,
+                                                  seed=5)
+    wnr0 = np.random.default_rng(7).uniform(0.0, 0.2, w0.shape) \
+        .astype(np.float32)
+    live = np.full(w0.shape, which == "every-lane-live")
+    (Um, U_1, lam, log_pi, rates), ms = model_inputs(tree, n_rates)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).reshape(-1))
+    got = sep_plain(*port_lanes(U, V, Nl, site_ok), t(w0), t(wur0),
+                    t(wnr0), t(live), ms, n_rates)
+    assert all(g.shape == (w0.size,) for g in got)
+    if which == "no-lane-live":
+        assert all((g.numpy() == 0).all() for g in got)
+        return
+    j = jnp.asarray
+    ref = sep_optimize_pallas(j(U), j(V), j(Nl), j(site_ok), j(w0),
+                              j(wur0), j(wnr0), j(live), j(Um), j(U_1),
+                              j(lam), j(log_pi), j(rates), n_rates,
+                              interpret=True)
+    for q in range(3):
+        np.testing.assert_allclose(got[q].numpy(),
+                                   np.asarray(ref[q]).reshape(-1),
+                                   atol=BRANCH_ATOL)
+    np.testing.assert_allclose(got[3].numpy(),
+                               np.asarray(ref[3]).reshape(-1),
+                               rtol=LL_RTOL, atol=LL_ATOL)
+    assert (got[4].numpy() >= 1).all() and (got[5].numpy() >= 2).all()
+
+
+def test_live_lane_list_is_the_live_lanes_in_order():
+    """The device-side list K3 works from: live lane indices in order,
+    then the count and a zeroed work counter."""
+    from hmmufotu_tpu_torch.phylo.cuda_place import live_lane_list
+    rng = np.random.default_rng(3)
+    for live in (rng.random((4, 50)) < 0.1, np.zeros(7, bool),
+                 np.ones((2, 3), bool)):
+        lanes, ctrl = live_lane_list(torch.from_numpy(live))
+        want = np.nonzero(live.reshape(-1))[0]
+        assert lanes.dtype == torch.int32 and ctrl.tolist() == [len(want),
+                                                                0]
+        np.testing.assert_array_equal(lanes.numpy()[:len(want)], want)
+
+
 def test_seed_pdist_counts_are_exact():
     """The bf16 one-hot planes are upcast to f32 before the product, so
     mismatch counts well above 256 (where a bf16 result would round)

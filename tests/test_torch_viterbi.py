@@ -147,6 +147,58 @@ def test_plain_matches_pallas_interpret(ref, case):
     assert np.isfinite(c_port[:, 0].view(np.float32)).all()
 
 
+def band_origin(regions, K):
+    """Per read (band origin jb, band span) as the split computes them."""
+    used = regions[:, :, 1] > 0
+    jlo = np.where(used, np.maximum(regions[:, :, 0], 1),
+                   np.int64(1) << 40).min(1)
+    jhi = np.where(used, np.minimum(regions[:, :, 1], K), 0).max(1)
+    jb = np.maximum(jlo - 1, 0)
+    return jb.astype(np.int32), (jhi - jb + 1).max()
+
+
+# The row loop's special shapes, band-relative: the D chain cut after 1, 2,
+# 32 and 33 lanes (below, at and past a warp's reach) and unbounded; a band
+# of 200 lanes (not a multiple of 32) held against the reference at 256,
+# which must agree while every region fits in 200 lanes.  Read 0 has
+# length 1 and read 2 stops inside the batch; the others fill n_rows.
+ROW_SHAPES = {"dchain-1": (1, 256), "dchain-2": (2, 256),
+              "dchain-32": (32, 256), "dchain-33": (33, 256),
+              "dchain-unbounded": (1 << 30, 256),
+              "band-200-lanes": (1 << 30, 200)}
+
+
+@pytest.mark.parametrize("shape", list(ROW_SHAPES))
+def test_plain_matches_pallas_row_shapes(ref, shape):
+    import jax.numpy as jnp
+    from hmmufotu_tpu.hmm.pallas_viterbi import viterbi_pallas_traced
+    from hmmufotu_tpu.hmm.viterbi import DeviceHMM as RefDH
+    from hmmufotu_tpu_torch.convert import device_hmm_from_numpy
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    dchain, KP = ROW_SHAPES[shape]
+    reads = fixture_reads(ref[0], 8, 64, seed=0)
+    codes, lengths, regions, n_rows = dp_inputs(ref, reads)
+    assert n_rows == 64
+    lengths[0], lengths[2] = 1, 37
+    dh = RefDH.from_profile(ref[1])
+    jb, span = band_origin(regions, dh.K)
+    assert span <= 200
+    _, c_ref = viterbi_pallas_traced(
+        dh, jnp.asarray(codes.astype(np.int8)), jnp.asarray(lengths),
+        jnp.asarray(regions), n_rows, True, j_base=jnp.asarray(jb), KB=256,
+        n_regions=3, dchain=dchain)
+    tc, em, scal = cv.stage_costs(device_hmm_from_numpy(
+        {k: np.asarray(v) for k, v in dh._asdict().items()}, "cpu"))
+    _, max_steps, _ = cv.launch_shape(dh.K, n_rows, 256)
+    c_port = cv.viterbi_traced(
+        tc, em, scal, torch.from_numpy(codes),
+        torch.from_numpy(cv.make_meta(lengths, regions)),
+        torch.from_numpy(jb), n_rows, dh.K, KP, max_steps, 3, dchain)
+    np.testing.assert_array_equal(c_port.numpy(), np.asarray(c_ref))
+    best_i = c_port.numpy()[:, 1].view(np.float32)
+    assert best_i[0] == 1 and best_i[2] <= 37
+
+
 def test_unpack_emits_matches_reference():
     from hmmufotu_tpu.hmm.pallas_viterbi import unpack_emits as ref_unpack
     from hmmufotu_tpu_torch.hmm.cuda_viterbi import PAD_WORD, unpack_emits

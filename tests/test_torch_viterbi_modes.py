@@ -56,6 +56,11 @@ def _inputs(ref, case):
     reads[1] = reads[1][:50]
     codes, lengths, regions, n_rows = dp_inputs(ref, reads, unseeded=(2, 5))
     assert n_rows == N_ROWS
+    if case == "edge-lengths":
+        # a read of one base beside reads that fill every row: the planes
+        # past a read's end are output too
+        lengths[0] = 1
+        assert (lengths[3:] == N_ROWS).all()
     return codes, lengths, regions
 
 
@@ -69,7 +74,7 @@ def planes(ref):
     dh = _ref_dh(ref)
     staged = cv.stage_costs(_port_dh(dh))
     out = {}
-    for case in ("full-dp", "banded"):
+    for case in ("full-dp", "banded", "edge-lengths"):
         codes, lengths, regions = _inputs(ref, case)
         want = tuple(np.array(x) for x in viterbi_pallas(
             dh, jnp.asarray(codes.astype(np.int8)), jnp.asarray(lengths),
@@ -82,7 +87,7 @@ def planes(ref):
     return out
 
 
-@pytest.mark.parametrize("case", ["full-dp", "banded"])
+@pytest.mark.parametrize("case", ["full-dp", "banded", "edge-lengths"])
 def test_planes_plain_matches_pallas_interpret(ref, planes, case):
     _, want, got = planes[case]
     K = ref[1].K
