@@ -9,13 +9,14 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
   2. build    nvcc builds every kernel of hmmufotu_tpu_torch/csrc;
   3. fixture  the 70_otus DB (GTR+dGamma4) built with the port's builder;
   4. kernels  K1 (banded Viterbi, narrow and wide launches timed one by
-              one, 3 and 5 region slots), K2 (estimate), K3 (SEP optimize,
-              1 and 4
-              Gamma rates), K4 (choice-plane Viterbi, and the host walk
-              over its planes against K1's tracebacks) and K5 (single-
-              branch fixed point) on inputs captured from the two paths
-              at the benchmark's shapes, each held against its plain
-              PyTorch version on the same CUDA tensors;
+              one, 3 and 5 region slots), K2 (estimate, with its bound for
+              the masked sites and the per-lane layout's), K3 (SEP
+              optimize, 1 and 4 Gamma rates), K4 (choice-plane Viterbi,
+              and the host walk over its planes against K1's tracebacks)
+              and K5 (single-branch fixed point, with its chain floor) on
+              inputs captured from the two paths at the benchmark's
+              shapes, each held against its plain PyTorch version on the
+              same CUDA tensors;
   5. assign   1,024 simulated reads through pipeline.assign_stream on the
               card, every kernel launch counter checked, alignments and
               best placements compared with a CPU run of the port;
@@ -74,12 +75,15 @@ DOT_OPS = 14
 FP_STEP_OPS = 6
 K2_OPS_PER_SITE = 3 * CONV_OPS + DOT_OPS + 16
 
+# device clock cycles of spin per timed call (cuda_ms): ~0.5 ms at the
+# H100's clocks, more than a wrapper takes to enqueue its work
+SPIN_CYCLES_PER_CALL = 1_000_000
+
 # relative/absolute tolerances of tests/test_pipeline.py:210-216
 BRANCH_ATOL = 2e-3
 LL_RTOL, LL_ATOL = 1e-4, 0.5
-# K5's p against its plain version: the kernel sums a lane's sites in a
-# warp butterfly, the plain version in torch's order, and a lane may stop
-# one step apart inside BRANCH_EPS = 1e-5 of its limit
+# K5's p against a plain version: summed in another order, a lane may
+# stop one step apart inside BRANCH_EPS = 1e-5 of its limit
 FP_ATOL, FP_RTOL = 1e-6, 1e-5
 
 
@@ -465,11 +469,16 @@ def reset_counters():
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps: int) -> float:
+    """Device time of one call of fn, by CUDA events around reps calls.
+    A spin kernel ahead of the first event keeps the device busy while
+    the host enqueues the calls, so the events see them back to back and
+    not the host's enqueue time."""
     import torch
     fn()
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * reps)
     s.record()
     for _ in range(reps):
         fn()
@@ -551,12 +560,29 @@ def check_k1(calls, label):
     return res
 
 
+def k2_work(maskr, C):
+    """(bytes, old per-lane bytes, operations, masked lane-sites) of a K2
+    launch for this data.  Bytes: U and V at the masked lane-sites, N at
+    the masked read-sites, the mask once per read, the scalars, the model
+    and the outputs.  The old count is that of the per-lane layout the
+    kernel took before (every lane's four planes and mask read in full)."""
+    B, Wp = maskr.shape
+    M = B * C
+    read_sites = int((maskr > 0.5).sum())
+    lane_sites = read_sites * C
+    n_bytes = lane_sites * 2 * 4 * 4 + read_sites * 4 * 4 + B * Wp * 4 \
+        + M * 2 * 4 + 64 * 4 + M * 2 * 4
+    old_bytes = (3 * 4 + 1) * M * Wp * 4 + M * 2 * 4 + 64 * 4 + M * 2 * 4
+    return n_bytes, old_bytes, lane_sites * K2_OPS_PER_SITE, lane_sites
+
+
 def check_k2(call):
     import torch
     from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    t0 = time.time()
     est_k, wnr_k = cp.est_cuda(*call)
     (est_p, wnr_p), plain_ms = cuda_once(lambda: cp.est_plain(*call))
-    Up, Vp, Np, maskp, wur0, wvr0, ms = call
+    maskr, C = call[3], call[7]
     cand_ok = torch.isfinite(est_p)
     if not torch.equal(torch.isfinite(est_k), cand_ok):
         raise AssertionError("K2: finite pattern differs")
@@ -566,15 +592,27 @@ def check_k2(call):
             or float(e_wnr.max()) > BRANCH_ATOL:
         raise AssertionError(f"K2 disagrees: est {float(e_est.max())}, "
                              f"wnr0 {float(e_wnr.max())}")
-    sites = int((maskp > 0.5).sum())
-    res = dict(ms=cuda_ms(lambda: cp.est_cuda(*call), 5),
-               plain_ms=plain_ms,
-               bytes=nbytes(Up, Vp, Np, maskp, wur0, wvr0, ms)
-               + 2 * 4 * maskp.shape[0],
-               ops=sites * K2_OPS_PER_SITE,
+    n_bytes, old_bytes, ops, lane_sites = k2_work(maskr, C)
+    M, Wp = maskr.shape[0] * C, maskr.shape[1]
+    # masked sites where the leaf message is one observed base (one 0,
+    # three -inf): pass 2 reads its convolution from the lane's table
+    Nr = call[2]
+    one_hot = ((Nr == 0).sum(0) == 1) & (torch.isinf(Nr).sum(0) == 3)
+    masked = maskr > 0.5
+    one_hot_share = float((one_hot & masked).sum()) / max(
+        int(masked.sum()), 1)
+    res = dict(ms=cuda_ms(lambda: cp.est_cuda(*call), 10),
+               plain_ms=plain_ms, bytes=n_bytes, ops=ops,
                max_abs_err=max(float(e_est.max()), float(e_wnr.max())))
-    log(f"  K2: M={maskp.shape[0]} Wp={maskp.shape[1]}: est max err "
-        f"{float(e_est.max()):.3g}, wnr0 max err {float(e_wnr.max()):.3g}")
+    b_new, b_old = bound(n_bytes, ops), bound(old_bytes, ops)
+    res["old_bound_ms"] = b_old[0]
+    log(f"  K2: B={maskr.shape[0]} C={C} M={M} Wp={Wp}: est max err "
+        f"{float(e_est.max()):.3g}, wnr0 max err {float(e_wnr.max()):.3g}, "
+        f"wnr0 bit-equal {torch.equal(wnr_k, wnr_p)}; masked share "
+        f"{lane_sites / (M * Wp):.4f}, of it one-hot {one_hot_share:.4f}; "
+        f"{res['ms']:.3f} ms against a bound "
+        f"of {b_new[0]:.4f} ms ({b_new[1]}; the per-lane layout's count "
+        f"{b_old[0]:.4f} ms, {b_old[1]}); check {time.time() - t0:.1f} s")
     return res
 
 
@@ -695,9 +733,10 @@ def check_k4(db, reads):
     return res
 
 
-def fp_trips(eA, eB, n, p_init, skip):
-    """Steps each lane of a K5 call takes (0 for a skipped lane): the
-    plain iteration, counting."""
+def fp_iterate(eA, eB, n, p_init, skip, total):
+    """(p, trips) of a K5 call by the plain iteration, a lane's terms
+    summed by total: p each lane's result, trips the steps it takes (0 for
+    a skipped lane)."""
     import torch
     from hmmufotu_tpu_torch.phylo.cuda_place import SAT_P
     from hmmufotu_tpu_torch.phylo.tree import BRANCH_EPS, MAX_ITER
@@ -710,20 +749,31 @@ def fp_trips(eA, eB, n, p_init, skip):
         trips += (~done).to(trips.dtype)
         num = eB * p[:, None]
         den = eA * (1.0 - p[:, None]) + num
-        pn = torch.where(den > 0, num / den, 0.0).sum(1) / n
+        pn = total(torch.where(den > 0, num / den, 0.0)) / n
         bad = ~((pn >= 0) & (pn <= 1))
         diff = (torch.log1p(-pn) - torch.log1p(-p)).abs()
         conv = (diff < BRANCH_EPS) | ~torch.isfinite(diff) | (pn >= SAT_P)
         p = torch.where(done | bad, p, pn)
         done = done | conv | bad
-    return trips
+    return p, trips
+
+
+def fp_trips(eA, eB, n, p_init, skip):
+    """Steps each lane of a K5 call takes (0 for a skipped lane), its
+    terms summed in the kernel's order."""
+    from hmmufotu_tpu_torch.phylo.cuda_fixed_point import tree_sum
+    return fp_iterate(eA, eB, n, p_init, skip, tree_sum)[1]
 
 
 def check_k5(call):
     """K5 against its plain version on the call of the fixed-point placer
-    with the most lanes iterating."""
+    with the most lanes iterating; beside it, against the same iteration
+    summed by torch's own reduction, which does not follow the kernel's
+    order; and its chain floor, the time of one launch of the same inputs
+    in which only the slowest lane iterates."""
     import torch
     from hmmufotu_tpu_torch.phylo import cuda_fixed_point as cf
+    t0 = time.time()
     eA, eB, n, p_init, skip = call
     got = cf.fixed_point_cuda(*call)
     want, plain_ms = cuda_once(lambda: cf.fixed_point_plain(*call))
@@ -734,19 +784,37 @@ def check_k5(call):
         raise AssertionError(f"K5 disagrees: max |dp| {float(err.max())}")
     live = ~skip
     n_live = int(live.sum())
-    trips = fp_trips(eA, eB, n.to(torch.float32), p_init, skip)
+    nf = n.to(torch.float32)
+    trips = fp_trips(eA, eB, nf, p_init, skip)
+    p_sum, trips_sum = fp_iterate(eA, eB, nf, p_init, skip,
+                                  lambda x: x.sum(1))
+    err_sum = (got - p_sum).abs()
+    n_out = int((err_sum > FP_ATOL + FP_RTOL * p_sum.abs()).sum())
     sites = ((eA[live] > 0) | (eB[live] > 0)).sum(1).double()
     M, W = eA.shape
-    res = dict(ms=cuda_ms(lambda: cf.fixed_point_cuda(*call), 5),
+    res = dict(ms=cuda_ms(lambda: cf.fixed_point_cuda(*call), 20),
                plain_ms=plain_ms,
-               bytes=n_live * 2 * W * 4 + M * 4 * 4,
+               # a live lane's two rows and n; skip, p_init and p of every
+               # lane
+               bytes=n_live * (2 * W * 4 + 4) + M * (1 + 4 + 4),
                ops=float((sites * trips[live].double()).sum())
                * FP_STEP_OPS,
                max_abs_err=float(err.max()))
+    alone = torch.ones_like(skip)
+    alone[int(torch.argmax(trips))] = False
+    res["chain_ms"] = cuda_ms(
+        lambda: cf.fixed_point_cuda(eA, eB, n, p_init, alone), 20)
     log(f"  K5: M={M} W={W} iterating lanes={n_live}: max |dp| "
-        f"{float(err.max()):.3g}, mean trips "
-        f"{float(trips[live].mean()) if n_live else 0:.2f}, max "
-        f"{int(trips.max())}")
+        f"{float(err.max()):.3g}, p bit-equal {torch.equal(got, want)}, "
+        f"trips mean "
+        f"{float(trips[live].mean()) if n_live else 0:.2f} max "
+        f"{int(trips.max())}; {res['ms']:.4f} ms, chain floor (the "
+        f"slowest lane alone) {res['chain_ms']:.4f} ms; check "
+        f"{time.time() - t0:.1f} s")
+    log(f"  K5 against torch's sum over the sites: max |dp| "
+        f"{float(err_sum.max()):.3g}, {n_out} lanes outside "
+        f"{FP_ATOL:g} + {FP_RTOL:g} |p|, "
+        f"{int((trips_sum != trips).sum())} stop on another trip")
     return res
 
 
@@ -1038,6 +1106,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
             "path_total_ms": kernel_ms[name]})
+        for key in ("old_bound_ms", "chain_ms"):
+            if key in r:
+                kernels[-1][key] = r[key]
         if "launch_ms" in r:
             kernels[-1]["launch_ms"] = r["launch_ms"]
     for k in kernels:

@@ -2,12 +2,15 @@
 3-branch optimization), each as CUDA C++ (csrc/place.cu) beside its
 plain PyTorch version.
 
-Counterpart of hmmufotu_tpu/phylo/pallas_place.py.  K2 takes one
-candidate lane per CUDA block; K3's blocks take the live lanes one after
-the other off a list built on the device (live_lane_list).  Both read
-the lane's [4, W] up, down and leaf message windows in the kernel layout
-built by pad_msgs / take_padded: [4, M, Wp] f32 planes and an [M, Wp]
-f32 site mask.
+Counterpart of hmmufotu_tpu/phylo/pallas_place.py.  Both read the
+lanes' [4, W] up and down message windows in the kernel layout built by
+pad_msgs / take_padded: [4, M, Wp] f32 planes (M = B*C candidate lanes,
+Wp = W rounded up to 128).  K2 takes the leaf message and the site mask
+once per read (pad_reads: [4, B, Wp] and [B, Wp]; lane m belongs to
+read m // C), one CUDA block per read.  K3 takes them per lane
+([4, M, Wp] and [M, Wp], from pad_msgs) and its blocks take the live
+lanes one after the other off a list built on the device
+(live_lane_list).
 
   * P(t) = U exp(lam t) U^-1 (the spectral form of every reference
     model, models.eig_tensors) convolved with the messages with the
@@ -71,6 +74,19 @@ def pad_msgs(U, V, Nl, site_ok):
     maskp = torch.zeros((M, Wp), dtype=torch.float32, device=dev)
     maskp[:, :W] = site_ok.reshape(M, W)
     return pad_msg(U), pad_msg(V), pad_msg(Nl), maskp
+
+
+def pad_reads(leaf, site_ok):
+    """[B, 4, W] leaf messages + [B, W] mask of a batch's reads -> K2's
+    per-read [4, B, Wp] plane and [B, Wp] f32 mask, zero padded as
+    pad_msgs pads the lanes."""
+    B, _, W = leaf.shape
+    Wp = _round_up(W, 128)
+    Nr = torch.zeros((4, B, Wp), dtype=torch.float32, device=leaf.device)
+    Nr[:, :, :W] = leaf.transpose(0, 1)
+    maskr = torch.zeros((B, Wp), dtype=torch.float32, device=leaf.device)
+    maskr[:, :W] = site_ok
+    return Nr, maskr
 
 
 def take_padded(padded, order, C: int):
@@ -138,16 +154,36 @@ def _argmax4(planes):
     return idx
 
 
-def est_plain(Up, Vp, Np, maskp, wur0, wvr0, model_s):
-    """Plain version of K2.  wur0/wvr0 [M].  Returns (est_loglik [M],
-    wnr0 [M]): the closed-form estimate at the initial split and the
-    unweighted initial pendant length (reference estimateSeq,
-    PhyloTreeUnrooted.cpp:861-871, cpp:1018-1031)."""
+def _check_est(Up, Vp, Nr, maskr, wur0, wvr0, C: int):
+    """K2's shapes: Up/Vp [4, M, Wp] per lane, Nr [4, B, Wp] and maskr
+    [B, Wp] per read, wur0/wvr0 [M], with M = B * C."""
+    if Up.dim() != 3 or Up.shape[0] != 4 or Vp.shape != Up.shape:
+        raise ValueError("U and V must both be [4, M, Wp]")
+    _, M, Wp = Up.shape
+    if maskr.dim() != 2 or maskr.shape[1] != Wp:
+        raise ValueError("mask must be [B, Wp], per read")
+    B = maskr.shape[0]
+    if Nr.shape != (4, B, Wp):
+        raise ValueError("N must be [4, B, Wp], per read")
+    if M != B * C:
+        raise ValueError(f"{M} lanes are not B * C = {B} * {C}")
+    if wur0.numel() != M or wvr0.numel() != M:
+        raise ValueError("wur0 and wvr0 must each hold M values")
+
+
+def est_plain(Up, Vp, Nr, maskr, wur0, wvr0, model_s, C: int):
+    """Plain version of K2.  Up/Vp [4, M, Wp] per lane; Nr [4, B, Wp]
+    and maskr [B, Wp] per read, lane m of read m // C; wur0/wvr0 [M].
+    Returns (est_loglik [M], wnr0 [M]): the closed-form estimate at the
+    initial split and the unweighted initial pendant length (reference
+    estimateSeq, PhyloTreeUnrooted.cpp:861-871, cpp:1018-1031).  Values
+    of U and V at unmasked sites do not reach the result."""
+    _check_est(Up, Vp, Nr, maskr, wur0, wvr0, C)
     ms = model_s
-    mask = maskp > 0.5
+    mask = (maskr > 0.5).repeat_interleave(C, dim=0)
     U = [Up[k] for k in range(4)]
     V = [Vp[k] for k in range(4)]
-    N = [Np[k] for k in range(4)]
+    N = [Nr[k].repeat_interleave(C, dim=0) for k in range(4)]
     UPr = _conv_one(ms, U, wur0[:, None])
     VPr = _conv_one(ms, V, wvr0[:, None])
     R0 = [UPr[k] + VPr[k] for k in range(4)]
@@ -292,16 +328,22 @@ def _fn(name, n_ptr, n_int):
     return fn
 
 
-def est_cuda(Up, Vp, Np, maskp, wur0, wvr0, model_s):
-    """Launch K2 (csrc/place.cu hm_est); same contract as est_plain."""
-    _check_layout(Up, Vp, Np, maskp)
-    M, Wp = maskp.shape
-    scal = torch.stack([wur0, wvr0], dim=1).to(torch.float32).contiguous()
+def est_cuda(Up, Vp, Nr, maskr, wur0, wvr0, model_s, C: int):
+    """Launch K2 (csrc/place.cu hm_est); same contract as est_plain.
+    The kernel loads U and V only at the sites the read's mask keeps."""
+    _check_est(Up, Vp, Nr, maskr, wur0, wvr0, C)
+    for t, name in ((Up, "U"), (Vp, "V"), (Nr, "N")):
+        _cuda.require(t, torch.float32, 3, name)
+    _cuda.require(maskr, torch.float32, 2, "mask")
     _cuda.require(model_s, torch.float32, 1, "model_s")
+    B, Wp = maskr.shape
+    M = B * C
+    scal = torch.stack([wur0.reshape(-1), wvr0.reshape(-1)], dim=1) \
+        .to(torch.float32).contiguous()
     out = torch.empty((M, 2), dtype=torch.float32, device=Up.device)
-    rc = _fn("hm_est", 7, 2)(
-        Up.data_ptr(), Vp.data_ptr(), Np.data_ptr(), maskp.data_ptr(),
-        scal.data_ptr(), model_s.data_ptr(), out.data_ptr(), M, Wp,
+    rc = _fn("hm_est", 7, 3)(
+        Up.data_ptr(), Vp.data_ptr(), Nr.data_ptr(), maskr.data_ptr(),
+        scal.data_ptr(), model_s.data_ptr(), out.data_ptr(), B, C, Wp,
         _cuda.stream_ptr())
     _cuda.check_rc(rc, "est")
     if M:
@@ -316,7 +358,10 @@ def live_lane_list(live):
     """(lanes [M + 1] int32, ctrl [2] int32) of a K3 launch, built on the
     device without a host round trip: the indices of the live lanes in
     order in lanes[:n_live], and ctrl = (n_live, 0), the kernel's work
-    counter starting at 0."""
+    counter starting at 0.  K5 builds its list inside its launch
+    (fp_list_kernel), because its kernel is shorter than the host's
+    enqueue of these few ops; a K3 launch takes 1 to 7 ms on the device,
+    which hides them."""
     lv = live.reshape(-1).to(torch.bool)
     M = lv.shape[0]
     dev = lv.device
@@ -358,10 +403,10 @@ def sep_cuda(Up, Vp, Np, maskp, w0, wur0, wnr0, live, model_s,
 sep_cuda.launches = _cuda.LaunchCounter()
 
 
-def est(Up, Vp, Np, maskp, wur0, wvr0, model_s):
+def est(Up, Vp, Nr, maskr, wur0, wvr0, model_s, C: int):
     """K2 on CUDA tensors, its plain version on CPU tensors."""
     fn = est_cuda if Up.device.type == "cuda" else est_plain
-    return fn(Up, Vp, Np, maskp, wur0, wvr0, model_s)
+    return fn(Up, Vp, Nr, maskr, wur0, wvr0, model_s, C)
 
 
 def sep_optimize(Up, Vp, Np, maskp, w0, wur0, wnr0, live, model_s,

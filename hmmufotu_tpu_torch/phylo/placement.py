@@ -249,8 +249,8 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
     DevicePlacer); the defaults are the fused estimate + optimize path.
     Returns a dict of [B, C'] candidate tensors and the [B, 12] summary.
     """
-    from .cuda_place import (est, model_scalars, pad_msgs, sep_optimize,
-                             take_padded)
+    from .cuda_place import (est, model_scalars, pad_msgs, pad_reads,
+                             sep_optimize, take_padded)
     fused_est = sep_kernel and est_kernel
     dev = seq_win.device
     B = seq_win.shape[0]
@@ -289,6 +289,7 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
     # C smallest, lower node id first on ties (jax.lax.top_k order)
     c_dist, cand = torch.sort(dist_sort, dim=1, stable=True)
     c_dist, cand = c_dist[:, :C].contiguous(), cand[:, :C].contiguous()
+    C = cand.shape[1]           # the tree's N nodes where N < C
     best_dist = c_dist[:, :1]
     cand_ok = torch.isfinite(c_dist) & (c_dist - best_dist <= max_diff)
 
@@ -328,11 +329,13 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
     padded = None
     if fused_est:
         # the padded kernel-layout copies are built once and shared with
-        # the optimize kernel below
+        # the optimize kernel below; the estimate takes the leaf message
+        # and the mask once per read
         padded = pad_msgs(U, V, Nl, site_ok_c)
         del U, V
-        est_loglik, wnr0 = est(*padded, wur0.reshape(-1),
-                               wvr0.reshape(-1), ms)
+        est_loglik, wnr0 = est(padded[0], padded[1],
+                               *pad_reads(leaf, site_ok), wur0.reshape(-1),
+                               wvr0.reshape(-1), ms, C)
         est_loglik, wnr0 = est_loglik.reshape(B, C), wnr0.reshape(B, C)
     else:
         R0 = _dot_scaled(pr_fn(wur0), U) + _dot_scaled(pr_fn(wvr0), V)

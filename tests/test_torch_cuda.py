@@ -18,8 +18,9 @@ import pytest
 import torch
 
 from test_torch_pipeline import simulate_reads
-from test_torch_place import (BRANCH_ATOL, LL_ATOL, LL_RTOL, lane_inputs,
-                              model_inputs, port_lanes)
+from test_torch_place import (BRANCH_ATOL, LL_ATOL, LL_RTOL, est_args,
+                              lane_inputs, model_inputs, port_lanes,
+                              random_site_mask)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 pytestmark = pytest.mark.cuda
@@ -130,9 +131,8 @@ def test_est_kernel_matches_plain(db):
     from hmmufotu_tpu_torch.phylo import cuda_place as cp
     U, V, Nl, site_ok, w0, wur0, wvr0 = lane_inputs(db.ptu)
     _, ms = model_inputs(db.ptu, 1)
-    args = tuple(x.cuda() for x in port_lanes(U, V, Nl, site_ok)) + (
-        torch.from_numpy(wur0.reshape(-1)).cuda(),
-        torch.from_numpy(wvr0.reshape(-1)).cuda(), ms.cuda())
+    args = est_args(U, V, Nl, site_ok, wur0, wvr0, ms)
+    args = tuple(x.cuda() for x in args[:-1]) + (args[-1],)
     n0 = cp.est_cuda.launches.n
     est_k, wnr_k = cp.est_cuda(*args)
     torch.cuda.synchronize()
@@ -140,6 +140,60 @@ def test_est_kernel_matches_plain(db):
     est_p, wnr_p = cp.est_plain(*args)
     assert torch.equal(wnr_k, wnr_p)
     torch.testing.assert_close(est_k, est_p, rtol=LL_RTOL, atol=LL_ATOL)
+
+
+def synth_est_inputs(B, C, W, seed):
+    """Random messages for K2 at any window: up/down log-probabilities,
+    the leaf message of random reads (-inf off the base, log pi where
+    the read has a gap) and a random per-read mask."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    U = np.log(rng.dirichlet(np.ones(4), (B, C, W))).transpose(0, 1, 3, 2)
+    V = np.log(rng.dirichlet(np.ones(4), (B, C, W))).transpose(0, 1, 3, 2)
+    base = rng.integers(-1, 4, (B, W))
+    log_pi = np.log([0.3, 0.2, 0.2, 0.3])
+    leaf = np.where(base[:, None, :] >= 0,
+                    np.where(base[:, None, :] == np.arange(4)[:, None],
+                             0.0, -np.inf), log_pi[:, None])
+    Nl = np.broadcast_to(leaf[:, None], (B, C, 4, W))
+    wur0 = rng.uniform(0.0, 0.2, (B, C))
+    wvr0 = rng.uniform(0.0, 0.2, (B, C))
+    return (U.astype(f32), V.astype(f32), Nl.astype(f32),
+            random_site_mask(B, C, W, seed), wur0.astype(f32),
+            wvr0.astype(f32))
+
+
+# (B, C, W): the fixture's messages with C not a multiple of the block's
+# warps; random messages at a window wide enough that a block holds fewer
+# warps
+@pytest.mark.parametrize("B,C,W,source", [(6, 7, 300, "fixture"),
+                                          (5, 12, 2400, "random")])
+def test_est_kernel_random_masks_nan_outside(db, B, C, W, source):
+    """K2 with per-read inputs and random masks, U and V NaN or +-inf at
+    every unmasked site: the kernel never reads them, so it agrees with
+    the plain version on the clean inputs (wnr0 bit for bit)."""
+    from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    if source == "fixture":
+        U, V, Nl, _, w0, wur0, wvr0 = lane_inputs(db.ptu, B=B, C=C, W=W,
+                                                  seed=9)
+        site_ok = random_site_mask(B, C, W, seed=3)
+    else:
+        U, V, Nl, site_ok, wur0, wvr0 = synth_est_inputs(B, C, W, seed=5)
+    _, ms = model_inputs(db.ptu, 1)
+    args = est_args(U, V, Nl, site_ok, wur0, wvr0, ms)
+    args = tuple(x.cuda() for x in args[:-1]) + (args[-1],)
+    want = cp.est_plain(*args)
+    off = (args[3] < 0.5).repeat_interleave(C, 0)
+    junk = torch.tensor([np.nan, np.inf, -np.inf], device="cuda")[
+        torch.arange(off.numel(), device="cuda").reshape(off.shape) % 3]
+    Up, Vp = args[0].clone(), args[1].clone()
+    for X in (Up, Vp):
+        X[:, off] = junk[off]
+    est_k, wnr_k = cp.est_cuda(Up, Vp, *args[2:])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(want[0]).all())
+    assert torch.equal(wnr_k, want[1])
+    torch.testing.assert_close(est_k, want[0], rtol=LL_RTOL, atol=LL_ATOL)
 
 
 @pytest.mark.parametrize("n_rates", [1, 4])
@@ -248,3 +302,38 @@ def test_fixed_point_kernel_matches_plain(cuda):
     want = cf.fixed_point_plain(*args)
     assert torch.equal(got[args[4]], args[3][args[4]])
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("W", [128, 200, 512, 1000])
+@pytest.mark.parametrize("case", ["all-skipped", "one-live", "saturating"])
+def test_fixed_point_kernel_live_extremes(cuda, W, case):
+    """K5 with no lane iterating (the output is p_init, untouched), with a
+    single live lane among many, and with the saturating lane (eA = 1e-30)
+    beside ordinary ones, at windows that fill one, two, four or eight
+    sites of a thread.  Each lane's sites are random.  The kernel adds a
+    lane's terms in the plain version's order (tree_sum), so p is bit for
+    bit the plain version's."""
+    from hmmufotu_tpu_torch.phylo import cuda_fixed_point as cf
+    rng = np.random.default_rng(W)
+    M = 777
+    ok = rng.random((M, W)) < rng.uniform(0.2, 0.9, (M, 1))
+    eA = np.where(ok, rng.uniform(0.01, 1.0, (M, W)), 0).astype(np.float32)
+    eB = np.where(ok, rng.uniform(0.01, 1.0, (M, W)), 0).astype(np.float32)
+    n = np.maximum(ok.sum(1), 1).astype(np.float32)
+    p0 = rng.uniform(0.01, 0.5, M).astype(np.float32)
+    skip = np.ones(M, bool)
+    if case == "one-live":
+        skip[400] = False
+    elif case == "saturating":
+        skip[::3] = False
+        eA[3] = np.where(ok[3], 1e-30, 0)
+    args = tuple(torch.from_numpy(a).cuda() for a in (eA, eB, n, p0, skip))
+    n0 = cf.fixed_point_cuda.launches.n
+    got = cf.fixed_point_cuda(*args)
+    torch.cuda.synchronize()
+    assert cf.fixed_point_cuda.launches.n == n0 + 1
+    want = cf.fixed_point_plain(*args)
+    assert torch.equal(got[args[4]], args[3][args[4]])
+    assert torch.equal(got, want)
+    if case == "saturating":
+        assert float(got[3]) >= float(cf.SAT_P) > float(p0[3])

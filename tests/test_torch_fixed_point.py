@@ -197,6 +197,62 @@ def test_fixed_point_plain_matches_fp_kernel_interpret(trees):
     np.testing.assert_array_equal(fixed_point(*args).numpy(), got)
 
 
+@pytest.mark.parametrize("W", [1, 96, 128, 300, 1000])
+def test_tree_sum_is_the_halving_tree(W):
+    """K5's order of summation: zeros up to 128 * 2^k columns, then
+    halves added pairwise, each level rounded to f32 (as the kernel's
+    thread slots, shared-memory stage and butterfly add them)."""
+    from hmmufotu_tpu_torch.phylo.cuda_fixed_point import tree_sum
+    x = np.random.default_rng(W).uniform(0, 1, (5, W)).astype(np.float32)
+
+    def halves(v):
+        if len(v) == 1:
+            return v[0]
+        h = len(v) // 2
+        return halves(v[:h] + v[h:])        # f32 adds, element by element
+
+    Wt = 128
+    while Wt < W:
+        Wt *= 2
+    want = [halves(np.pad(r, (0, Wt - W))) for r in x]
+    got = tree_sum(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, np.array(want, np.float32))
+    np.testing.assert_allclose(got, x.sum(1), rtol=1e-5)
+
+
+@pytest.mark.parametrize("W", [128, 512, 1000])
+@pytest.mark.parametrize("live", ["none", "one"])
+def test_fixed_point_plain_live_extremes_match_fp_kernel_interpret(live, W):
+    """K5's plain version against the reference Pallas kernel with no lane
+    iterating, and with one lane iterating among many, at windows up to
+    and past the 512 sites the CUDA kernel holds in registers.  Each
+    lane's informative sites are one run, as on the placer's path."""
+    import jax.numpy as jnp
+    from hmmufotu_tpu.phylo.placement import _fixed_point_pallas
+    from hmmufotu_tpu_torch.phylo.cuda_fixed_point import fixed_point_plain
+    rng = np.random.default_rng(W)
+    M = 40
+    lo = rng.integers(0, W // 2, M)
+    hi = lo + rng.integers(W // 4, W // 2, M)
+    ok = (np.arange(W) >= lo[:, None]) & (np.arange(W) < hi[:, None])
+    eA = np.where(ok, rng.uniform(0.01, 1.0, (M, W)), 0).astype(np.float32)
+    eB = np.where(ok, rng.uniform(0.01, 1.0, (M, W)), 0).astype(np.float32)
+    n = np.maximum(ok.sum(1), 1).astype(np.float32)
+    p0 = rng.uniform(0.01, 0.5, M).astype(np.float32)
+    skip = np.ones(M, bool)
+    if live == "one":
+        skip[17] = False
+    want = np.asarray(_fixed_point_pallas(*map(jnp.asarray,
+                                               (eA, eB, n, p0, skip))))
+    got = fixed_point_plain(*map(torch.from_numpy,
+                                 (eA, eB, n, p0, skip))).numpy()
+    np.testing.assert_array_equal(got[skip], p0[skip])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-6)
+    if live == "one":
+        assert abs(got[17] - p0[17]) > 1e-3
+
+
 @pytest.fixture(scope="module")
 def trees_by_rates(trees):
     """{4: the dGamma4 trees, 1: shallow copies with the Gamma model
@@ -240,6 +296,22 @@ def test_placer_branch_matches_reference(trees_by_rates, n_rates, sep, fp,
                                rtol=LL_RTOL, atol=LL_ATOL)
     np.testing.assert_array_equal(got["summary"][:, :3],
                                   np.asarray(want["summary"])[:, :3])
+
+
+@pytest.mark.parametrize("sep,fp,est", [(True, True, True)] + FLAGS)
+def test_placer_with_fewer_nodes_than_max_nseed(trees, sep, fp, est):
+    """A tree of N < max_nseed nodes gives every read its N nodes as
+    candidates: the same placement as max_nseed = N, on every branch."""
+    from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
+    _, tree = trees
+    N = tree.num_nodes
+    seqs, starts, ends = leaf_reads(tree, 2, seed=5)
+    got, want = (DevicePlacer(tree, window=256, max_nseed=c, device="cpu",
+                              sep_kernel=sep, fp_kernel=fp, est_kernel=est)
+                 .place_batch(seqs, starts, ends) for c in (N + 20, N))
+    assert got["cand"].shape == (2, N)
+    for k in ("cand", "live", "wnr", "loglik", "summary"):
+        np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_placer_branches_agree_with_default(trees):

@@ -94,6 +94,32 @@ def port_lanes(U, V, Nl, site_ok):
                     t(np.ascontiguousarray(site_ok)))
 
 
+def port_reads(Nl, site_ok):
+    """K2's per-read leaf plane and mask from the [B, C, ...] lane grids
+    (the same for every candidate of a read)."""
+    from hmmufotu_tpu_torch.phylo.cuda_place import pad_reads
+    t = lambda a: torch.from_numpy(np.array(a))      # a writable copy
+    return pad_reads(t(Nl[:, 0]), t(site_ok[:, 0]))
+
+
+def est_args(U, V, Nl, site_ok, wur0, wvr0, ms):
+    """est_plain's / est_cuda's arguments from [B, C, ...] numpy grids."""
+    Up, Vp, _, _ = port_lanes(U, V, Nl, site_ok)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).reshape(-1))
+    return (Up, Vp, *port_reads(Nl, site_ok), t(wur0), t(wvr0), ms,
+            U.shape[1])
+
+
+def random_site_mask(B, C, W, seed):
+    """A random [B, C, W] mask, the same for every candidate of a read,
+    with one read masked everywhere but one site."""
+    rng = np.random.default_rng(seed)
+    m = rng.random((B, W)) < rng.uniform(0.2, 0.8, (B, 1))
+    m[-1] = False
+    m[-1, W // 3] = True
+    return np.broadcast_to(m[:, None], (B, C, W))
+
+
 def model_inputs(tree, n_rates):
     from hmmufotu_tpu_torch.phylo.cuda_place import model_scalars
     from hmmufotu_tpu_torch.phylo.models import eig_tensors
@@ -107,26 +133,92 @@ def model_inputs(tree, n_rates):
     return (Um, U_1, lam, log_pi, rates), ms
 
 
-def test_est_plain_matches_pallas_interpret(trees):
+def _est_ref(U, V, Nl, site_ok, wur0, wvr0, tree):
     import jax.numpy as jnp
     from hmmufotu_tpu.phylo.pallas_place import est_pallas
-    from hmmufotu_tpu_torch.phylo.cuda_place import est_plain
-    ref_tree, tree = trees
-    U, V, Nl, site_ok, w0, wur0, wvr0 = lane_inputs(ref_tree)
-    (Um, U_1, lam, log_pi, _), ms = model_inputs(tree, 1)
+    (Um, U_1, lam, log_pi, _), _ = model_inputs(tree, 1)
     j = jnp.asarray
     est_r, wnr_r = est_pallas(j(U), j(V), j(Nl), j(site_ok), j(wur0),
                               j(wvr0), j(Um), j(U_1), j(lam), j(log_pi),
                               interpret=True)
-    est_p, wnr_p = est_plain(*port_lanes(U, V, Nl, site_ok),
-                             torch.from_numpy(wur0.reshape(-1)),
-                             torch.from_numpy(wvr0.reshape(-1)), ms)
-    est_r, wnr_r = np.asarray(est_r).reshape(-1), np.asarray(wnr_r)
+    return np.asarray(est_r).reshape(-1), np.asarray(wnr_r).reshape(-1)
+
+
+def test_est_plain_matches_pallas_interpret(trees):
+    from hmmufotu_tpu_torch.phylo.cuda_place import est_plain
+    ref_tree, tree = trees
+    U, V, Nl, site_ok, w0, wur0, wvr0 = lane_inputs(ref_tree)
+    _, ms = model_inputs(tree, 1)
+    est_r, wnr_r = _est_ref(U, V, Nl, site_ok, wur0, wvr0, tree)
+    est_p, wnr_p = est_plain(*est_args(U, V, Nl, site_ok, wur0, wvr0, ms))
     assert np.isfinite(est_r).all()
     # wnr0 is a count of argmax mismatches over the same sites: exact
-    np.testing.assert_array_equal(wnr_p.numpy(), wnr_r.reshape(-1))
+    np.testing.assert_array_equal(wnr_p.numpy(), wnr_r)
     np.testing.assert_allclose(est_p.numpy(), est_r, rtol=LL_RTOL,
                                atol=LL_ATOL)
+
+
+@pytest.mark.parametrize("masks", ["contiguous", "random"])
+def test_est_plain_per_read_matches_pallas_interpret(trees, masks):
+    """Per-read leaf message and mask on a [B, C] grid (C > 1, W not a
+    multiple of 128), each read's mask one run of sites or random sites,
+    against the reference kernel given the same per-lane grids."""
+    from hmmufotu_tpu_torch.phylo.cuda_place import est_plain
+    ref_tree, tree = trees
+    B, C, W = 4, 5, 200
+    U, V, Nl, site_ok, w0, wur0, wvr0 = lane_inputs(ref_tree, B=B, C=C,
+                                                    W=W, seed=11)
+    if masks == "random":
+        site_ok = random_site_mask(B, C, W, seed=4)
+    _, ms = model_inputs(tree, 1)
+    est_r, wnr_r = _est_ref(U, V, Nl, site_ok, wur0, wvr0, tree)
+    est_p, wnr_p = est_plain(*est_args(U, V, Nl, site_ok, wur0, wvr0, ms))
+    assert est_p.shape == wnr_p.shape == (B * C,)
+    assert np.isfinite(est_r).all() and (wnr_r > 0).any()
+    np.testing.assert_array_equal(wnr_p.numpy(), wnr_r)
+    np.testing.assert_allclose(est_p.numpy(), est_r, rtol=LL_RTOL,
+                               atol=LL_ATOL)
+
+
+def test_est_plain_ignores_messages_at_unmasked_sites(trees):
+    """NaN and +-inf in U and V wherever the read's mask is off leave the
+    estimate and wnr0 bit for bit as they were: what lets the kernel skip
+    those sites."""
+    from hmmufotu_tpu_torch.phylo.cuda_place import est_plain
+    _, tree = trees
+    B, C, W = 3, 4, 256
+    U, V, Nl, _, w0, wur0, wvr0 = lane_inputs(tree, B=B, C=C, W=W, seed=6)
+    site_ok = random_site_mask(B, C, W, seed=8)
+    _, ms = model_inputs(tree, 1)
+    args = est_args(U, V, Nl, site_ok, wur0, wvr0, ms)
+    want = est_plain(*args)
+    off = (args[3] < 0.5).repeat_interleave(C, 0)          # [M, Wp]
+    junk = torch.tensor([np.nan, np.inf, -np.inf])[
+        torch.arange(off.numel()).reshape(off.shape) % 3]
+    Up, Vp = args[0].clone(), args[1].clone()
+    for X in (Up, Vp):
+        X[:, off] = junk[off]
+    got = est_plain(Up, Vp, *args[2:])
+    assert torch.isfinite(want[0]).all()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_est_refuses_lanes_not_b_times_c(trees):
+    """Both wrappers refuse lane planes that are not B * C lanes of the
+    per-read inputs, before any kernel or tensor op runs."""
+    from hmmufotu_tpu_torch.phylo.cuda_place import est, est_cuda
+    _, tree = trees
+    U, V, Nl, site_ok, w0, wur0, wvr0 = lane_inputs(tree, B=3, C=4,
+                                                    W=128, seed=2)
+    _, ms = model_inputs(tree, 1)
+    args = est_args(U, V, Nl, site_ok, wur0, wvr0, ms)
+    for fn in (est, est_cuda):
+        with pytest.raises(ValueError, match="B \\* C"):
+            fn(*args[:-1], 5)
+    # the leaf plane per lane, as K3 takes it, is refused
+    with pytest.raises(ValueError, match="per read"):
+        est(args[0], args[1], args[0], *args[3:])
 
 
 @pytest.mark.parametrize("n_rates", [1, 4])
