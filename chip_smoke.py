@@ -25,13 +25,27 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               (K5), launch counters checked, compared read for read with
               the main path; 64 reads each through the scan aligner and
               through K3 fed by the tensor-op estimate;
-  7. scale    a synthetic DB of 16,384 leaves x 1,600 columns (GTR+dGamma4,
+  7. pe       the assign CLI on 512 read pairs written by the port's sim
+              (GLOBAL alignment of both mates, merge, device placement)
+              and on 64 pairs of 600 bp inserts, on the card and on the
+              CPU: K1-K3 launches, pairs/s, merged and badly oriented
+              pairs, merged reads wider than the placer's window, rows
+              compared;
+  8. chimera  assign -C on a synthetic chimera and 64 simulated reads, on
+              the card (which only aligns) and on the CPU: the same rows
+              and chimera rows byte for byte, the chimera flagged and no
+              clean read;
+  9. evaluate the torch evaluate engine on the card against the numpy f64
+              engine on the fixture tree, twice (bit-equal);
+ 10. scale    a synthetic DB of 16,384 leaves x 1,600 columns (GTR+dGamma4,
               leaf sequences evolved down the tree), 8,192 simulated
               250 bp reads in batches of 2,048: reads/s, per-kernel
               launches and CUDA-event time (K1 by launch width; K3 by
               launch with its live lanes, trip counts and bound), peak
               device memory, the host-clock stages of one batch, and 64
-              reads compared with a CPU run.
+              reads compared with a CPU run; the torch evaluate engine on
+              the synthetic tree against the messages of the DB build
+              (numpy engine), with both engines' wall time.
 
 Prints one `kernels` JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -62,6 +76,12 @@ SCALE_LEAVES = 16384
 SCALE_COLS = 1600
 N_SCALE_CPU_READS = 64
 N_MODE_READS = 64       # reads of the short scan / tensor-op-estimate runs
+N_PAIRS = 512           # read pairs of the paired-end phase
+N_WIDE_PAIRS = 64       # pairs with 600 bp inserts (wider than W = 512)
+N_CHIMERA_CLEAN = 64    # simulated reads beside the chimera
+# the reference package's tolerances between its two evaluate engines
+# (tests/test_scale_eval.py): messages on finite entries, tree loglik
+EVAL_ATOL, EVAL_LL_RTOL = 0.05, 1e-5
 
 # device peaks for the bound (H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -101,10 +121,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def simulate_reads(tree, rng, n, length=READ_LEN):
-    """Mutated leaf windows (2% substitutions), as bench.py simulates."""
-    leaves = [u for u in range(tree.num_nodes)
-              if tree.is_leaf(u) and tree.msa_id[u] >= 0]
+def simulate_reads(tree, rng, n, length=READ_LEN, leaves=None):
+    """Mutated leaf windows (2% substitutions), as bench.py simulates;
+    from every leaf, or from the given ones."""
+    leaves = leaves or [u for u in range(tree.num_nodes)
+                        if tree.is_leaf(u) and tree.msa_id[u] >= 0]
     reads = []
     while len(reads) < n:
         u = int(rng.choice(leaves))
@@ -900,6 +921,233 @@ def scale_launch_report(events, notes):
 
 
 # ---------------------------------------------------------------------------
+# the assign CLI's batch loop: paired-end mates and chimera checking
+# ---------------------------------------------------------------------------
+
+def read_rows(path):
+    """Body rows of an assignment TSV, split into fields."""
+    with open(path) as fh:
+        return [line.rstrip("\n").split("\t") for line in fh
+                if not line.startswith("#") and not line.startswith("id\t")]
+
+
+def compare_rows(gpu, cpu, max_node_frac):
+    """compare_runs' rules on two assignment TSVs (no chimera columns):
+    the same ids, alignment columns equal, the same branch and taxon, a
+    differing row accepted only as a near tie, at most max_node_frac of
+    the placed rows."""
+    if [r[0] for r in gpu] != [r[0] for r in cpu]:
+        return False, {"ids_differ": True}
+    n_aln = n_diff = n_bad = n_placed = 0
+    max_ll = 0.0
+    for g, c in zip(gpu, cpu):
+        n_aln += g[2:10] != c[2:10]        # coordinates, cost, alignment
+        if (g[12] == "-1") != (c[12] == "-1"):
+            n_bad += 1
+            continue
+        if c[12] == "-1":
+            continue
+        n_placed += 1
+        if not all(math.isfinite(float(g[k])) for k in (11, 15, 16, 17)):
+            n_bad += 1
+        ll_g, ll_c = float(g[15]), float(c[15])
+        if abs(ll_g - ll_c) > LL_ATOL + LL_RTOL * abs(ll_c):
+            n_bad += 1
+        if (g[10], g[12]) != (c[10], c[12]):
+            n_diff += 1
+            continue
+        max_ll = max(max_ll, abs(ll_g - ll_c))
+    ok = (n_aln == 0 and n_bad == 0 and n_placed > 0
+          and n_diff <= max_node_frac * n_placed)
+    return ok, dict(rows=len(gpu), aln_mismatch=n_aln, placed=n_placed,
+                    node_mismatch_near_tie=n_diff, bad=n_bad,
+                    max_loglik_diff=max_ll)
+
+
+def run_cli(argv, device, out, chi):
+    """The port's assign CLI writing `out` and `chi` (--chimera-out);
+    returns their body rows."""
+    from hmmufotu_tpu_torch.cli.assign import main as assign_main
+    if assign_main(argv + ["-o", out, "--chimera-out", chi],
+                   device=device) != 0:
+        raise RuntimeError(f"assign on {device} failed")
+    return read_rows(out), read_rows(chi)
+
+
+def pe_phase(fx, tree, n_pairs, insert):
+    """Paired-end assign on n_pairs pairs of 150 bp mates from the port's
+    sim (insert size mean `insert`, sd 20): on the card (launches counted
+    from 0), then on the CPU, row for row."""
+    import torch
+    from hmmufotu_tpu_torch.cli.sim import main as sim_main
+    d = os.path.join(WORK, f"pe{insert}")
+    os.makedirs(d, exist_ok=True)
+    r1, r2 = os.path.join(d, "pe_1.fasta"), os.path.join(d, "pe_2.fasta")
+    if sim_main([fx, r1, "-m", r2, "-N", str(n_pairs), "-S", "11",
+                 "--mean-size", str(insert), "--sd-size", "20", "-l",
+                 "150"]) != 0:
+        raise RuntimeError("sim failed")
+    argv = [fx, r1, r2, "-S", "0", "-b", str(n_pairs)]
+    cnt = reset_counters()
+    t = time.time()
+    gpu, gpu_chi = run_cli(argv, "cuda", os.path.join(d, "gpu.tsv"),
+                           os.path.join(d, "gpu_chi.tsv"))
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    launches = {k: cnt[k].n for k in MAIN_KERNELS}
+    W = min(512, tree.cs_len)
+    n_wide = sum(int(r[7]) - int(r[6]) + 1 > W for r in gpu)
+    log(f"[pe] {n_pairs} pairs (insert {insert} +- 20 bp, 150 bp mates) "
+        f"through the assign CLI on the card in {dt:.2f} s "
+        f"({n_pairs / dt:.1f} "
+        f"pairs/s, DB load and strand test included); launches "
+        f"{launches}; merged {len(gpu)}, badly oriented {len(gpu_chi)}; "
+        f"merged reads wider than W = {W} columns: {n_wide}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    t = time.time()
+    cpu, cpu_chi = run_cli(argv, "cpu", os.path.join(d, "cpu.tsv"),
+                           os.path.join(d, "cpu_chi.tsv"))
+    ok, stats = compare_rows(gpu, cpu, 0.01)
+    stats["badly_oriented_equal"] = gpu_chi == cpu_chi
+    log(f"[pe] vs the CPU run of the port ({time.time() - t:.1f} s): "
+        f"{json.dumps(stats)}")
+    if not ok or gpu_chi != cpu_chi or len(gpu) + len(gpu_chi) != n_pairs:
+        raise AssertionError("paired-end run disagrees with the CPU run")
+
+
+def chimera_phase(fx, tree):
+    """assign -C on a contiguous chimera (5' of an archaeon, 3' of a
+    bacterium at the same ungapped offset) and N_CHIMERA_CLEAN reads
+    simulated from the bacterium, its clean control (tests/test_pipeline.py
+    TestChimera), on the card and on the CPU: segment placement is host
+    f64 in both, so the rows agree byte for byte.  (Windows of the
+    archaeon, an isolated leaf of this DB, are flagged at the default lod
+    0 by both packages: the reference algorithm's, not a fault.)"""
+    import torch
+    d = os.path.join(WORK, "chimera")
+    os.makedirs(d, exist_ok=True)
+    leaves = [u for u in range(tree.num_nodes)
+              if tree.is_leaf(u) and tree.msa_id[u] >= 0]
+    u5 = next(u for u in leaves if tree.anno[u].startswith("k__Arch"))
+    u3 = next(u for u in leaves if tree.anno[u].startswith("k__Bact"))
+
+    def ungapped(u, lo, n):
+        pos = np.nonzero(tree.seqs[u] >= 0)[0][lo:lo + n]
+        return "".join("ACGT"[c] for c in tree.seqs[u][pos])
+
+    recs = [("chimera", ungapped(u5, 10, 120) + ungapped(u3, 130, 120))]
+    recs += [(f"clean{i}", s) for i, s in enumerate(simulate_reads(
+        tree, np.random.default_rng(3), N_CHIMERA_CLEAN, leaves=[u3]))]
+    reads = os.path.join(d, "chim.fasta")
+    with open(reads, "w") as fh:
+        fh.write("".join(f">{rid}\n{s}\n" for rid, s in recs))
+    argv = [fx, reads, "-C", "-S", "0", "-s", "1"]
+    cnt = reset_counters()
+    t = time.time()
+    gpu = run_cli(argv, "cuda", os.path.join(d, "gpu.tsv"),
+                  os.path.join(d, "gpu_chi.tsv"))
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    launches = {k: cnt[k].n for k in MAIN_KERNELS}
+    t = time.time()
+    cpu = run_cli(argv, "cpu", os.path.join(d, "cpu.tsv"),
+                  os.path.join(d, "cpu_chi.tsv"))
+    dt_cpu = time.time() - t
+    flagged = sorted(r[0] for r in gpu[1])
+    lod = {r[0]: float(r[14]) for r in gpu[0] + gpu[1]}
+    clean = [v for k, v in lod.items() if k != "chimera" and math.isfinite(v)]
+    log(f"[chimera] {len(recs)} reads through assign -C on the card in "
+        f"{dt:.2f} s (CPU {dt_cpu:.2f} s); launches {launches}; flagged "
+        f"{flagged}; main and chimera rows equal to the CPU run's: "
+        f"{gpu == cpu}; lod of the chimera {lod.get('chimera', math.nan):g}, "
+        f"largest of the clean reads {max(clean, default=math.nan):g}; "
+        f"finite lods {sum(map(math.isfinite, lod.values()))} of {len(lod)}")
+    if launches["viterbi_traced"] <= 0:
+        raise AssertionError("assign -C did not launch K1")
+    if gpu != cpu or flagged != ["chimera"]:
+        raise AssertionError("chimera run wrong or different from the CPU")
+
+
+def evaluate_check(tree, want, budget_bytes=2 << 30, rtol=0.0):
+    """The torch engine on the card against messages `want` (msg_up,
+    msg_down, tree loglik) of the numpy engine on the same tree: the same
+    -inf pattern, |delta| within EVAL_ATOL + rtol |value|, tree loglik
+    within EVAL_LL_RTOL.  Returns (ok, stats, the torch run's
+    messages)."""
+    import copy
+    import torch
+    t = copy.copy(tree)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    t.evaluate(dtype=np.float32, engine="torch", budget_bytes=budget_bytes,
+               device="cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(torch_s=dt, peak_gib=peak / 2**30, inf_pattern_equal=True,
+                 max_abs_diff=0.0, max_rel_diff=0.0, outside=0,
+                 not_finite=0)
+    for a, b in zip((t.msg_up, t.msg_down), want[:2]):
+        stats["inf_pattern_equal"] &= bool(
+            ((a == -np.inf) == (b == -np.inf)).all())
+        f = np.isfinite(b)
+        err = np.abs(a[f].astype(np.float64) - b[f])
+        mag = np.abs(b[f].astype(np.float64))
+        stats["outside"] += int((err > EVAL_ATOL + rtol * mag).sum())
+        stats["max_abs_diff"] = max(stats["max_abs_diff"], float(err.max()))
+        stats["max_rel_diff"] = max(stats["max_rel_diff"], float(
+            (err / np.maximum(mag, 1.0)).max()))
+        stats["not_finite"] += int((~np.isfinite(a[f])).sum())
+    ll = t.tree_loglik()
+    stats["loglik_rel_diff"] = abs(ll - want[2]) / abs(want[2])
+    ok = (stats["inf_pattern_equal"] and stats["outside"] == 0
+          and stats["not_finite"] == 0
+          and stats["loglik_rel_diff"] < EVAL_LL_RTOL)
+    return ok, stats, (t.msg_up, t.msg_down)
+
+
+def evaluate_phase(tree):
+    """The torch engine on the fixture tree against the numpy f64 engine,
+    twice with several site blocks (bit-equal)."""
+    import copy
+    t = copy.copy(tree)
+    t0 = time.time()
+    t.evaluate()
+    numpy_s = time.time() - t0
+    want = (t.msg_up, t.msg_down, t.tree_loglik())
+    runs = []
+    for _ in range(2):
+        ok, stats, msgs = evaluate_check(tree, want, budget_bytes=32 << 20)
+        runs.append(msgs)
+        if not ok:
+            raise AssertionError(f"torch evaluate engine disagrees: {stats}")
+    bit_equal = all(np.array_equal(a, b) for a, b in zip(*runs))
+    stats["numpy_s"] = numpy_s
+    stats["bit_equal_across_runs"] = bit_equal
+    log(f"[evaluate] fixture tree ({tree.num_nodes} nodes x {tree.cs_len} "
+        f"columns, K={len(tree._rates())}), torch engine on the card vs the "
+        f"numpy f64 engine: {json.dumps(stats)}")
+    if not bit_equal:
+        raise AssertionError("two torch evaluate runs differ")
+
+
+def sweep_timer():
+    """(times, patch): while the patch is active, the wall time of every
+    PTUnrooted.evaluate call is appended to times."""
+    from hmmufotu_tpu_torch.phylo import PTUnrooted
+    times, orig = [], PTUnrooted.evaluate
+
+    def timed(tree, *a, **kw):
+        t = time.time()
+        out = orig(tree, *a, **kw)
+        times.append(time.time() - t)
+        return out
+    return times, Patch((PTUnrooted, "evaluate", timed))
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1032,12 +1280,29 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"{label} disagrees with the main path")
 
-    # ---- 7. realistic size ----------------------------------------------
-    sdb, n_nodes, max_depth, t_gen, t_build = build_synth_db(
-        os.path.join(WORK, "synth"), SCALE_LEAVES, SCALE_COLS)
+    # ---- 7-9. the assign CLI's batch loop; the torch evaluate engine ----
+    t = time.time()
+    pe_phase(fx, db.ptu, N_PAIRS, 400)
+    # inserts of 600 bp: merged reads wider than the placer's window
+    pe_phase(fx, db.ptu, N_WIDE_PAIRS, 600)
+    log(f"[pe] phase took {time.time() - t:.1f} s")
+    t = time.time()
+    chimera_phase(fx, db.ptu)
+    log(f"[chimera] phase took {time.time() - t:.1f} s")
+    t = time.time()
+    evaluate_phase(db.ptu)
+    log(f"[evaluate] phase took {time.time() - t:.1f} s")
+
+    # ---- 10. realistic size ---------------------------------------------
+    sweeps, patch = sweep_timer()
+    with patch:
+        sdb, n_nodes, max_depth, t_gen, t_build = build_synth_db(
+            os.path.join(WORK, "synth"), SCALE_LEAVES, SCALE_COLS)
     log(f"[scale] synthetic DB: {SCALE_LEAVES} leaves ({n_nodes} nodes, "
         f"depth {max_depth}) x {SCALE_COLS} columns, GTR+dGamma4; "
-        f"inputs {t_gen:.1f} s, build {t_build:.1f} s")
+        f"inputs {t_gen:.1f} s, build {t_build:.1f} s, of it the numpy "
+        f"evaluate sweeps {' + '.join(f'{x:.1f}' for x in sweeps)} s "
+        f"({sum(sweeps) / t_build:.1%})")
     log("reduced " + json.dumps({
         "from": "gg_97 shape: 149,999 nodes x 6,000 columns",
         "to": f"{n_nodes} nodes x {SCALE_COLS} columns",
@@ -1090,6 +1355,16 @@ def main() -> int:
         f"{json.dumps(stats)}")
     if not ok:
         raise AssertionError("scale run disagrees with the CPU run")
+    ok, stats, _ = evaluate_check(
+        sdb.ptu, (sdb.ptu.msg_up, sdb.ptu.msg_down, sdb.ptu.tree_loglik()),
+        rtol=EVAL_LL_RTOL)
+    torch.cuda.empty_cache()
+    stats["numpy_s"] = sweeps[-1]
+    log(f"[evaluate] synthetic tree ({n_nodes} nodes x {SCALE_COLS} columns, "
+        f"K=4), torch engine on the card vs the build's numpy f64 engine "
+        f"(messages stored f32): {json.dumps(stats)}")
+    if not ok:
+        raise AssertionError("torch evaluate engine disagrees at scale")
 
     # ---- result ----------------------------------------------------------
     # launches and path_total_ms are those of the path that runs the

@@ -1,12 +1,14 @@
 """Main read assigner CLI (reference: src/hmmufotu.cpp).
 
-Counterpart of hmmufotu_tpu/cli/assign.py for single-end reads on one
-device: loads the 4-file DB, batch-aligns reads with the banded device
-Viterbi, places them with the device SEP kernels, and writes the TSV
-with the reference's column layout (hmmufotu.cpp:590-594).  The parser
-is the reference package's; paired-end mates, chimera checking,
---resume and the mesh/multi-process flags are not ported yet and are
-refused with an error.
+Counterpart of hmmufotu_tpu/cli/assign.py on one device: loads the
+4-file DB, batch-aligns reads with the banded device Viterbi, places
+them with the device SEP kernels, and writes the TSV with the
+reference's column layout (hmmufotu.cpp:590-594).  Single-end reads
+without chimera checking stream through pipeline.assign_stream;
+paired-end mates, chimera checking and --align-only run the batch loop
+of the reference package.  The parser is the reference package's; the
+mesh and multi-process flags need a parallel layer this package does
+not have yet and are refused with an error.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import argparse
 import logging
 import math
+import os
 import sys
 
 import numpy as np
@@ -24,22 +27,21 @@ from ..db import Database
 from ..hmm import GLOBAL, NGCL, HmmAlignment, ViterbiAligner
 from ..phylo import PTPlacement
 from ..phylo.tree import (PLACEMENT_TSV_HEADER, UNASSIGNED_ID,
-                          UNASSIGNED_TAXONID, UNASSIGNED_TAXONNAME)
-from ..seq import SeqWriter, read_seqs
+                          UNASSIGNED_TAXONID, UNASSIGNED_TAXONNAME, p_dist)
+from ..seq import PrimarySeq, SeqWriter, read_seqs
 from .. import pipeline as pl
 
 log = logging.getLogger(__name__)
 
 ALN_TSV_HEADER = ("seq_start\tseq_end\thmm_start\thmm_end\tCS_start\t"
                   "CS_end\tcost\talignment")   # BandedHMMP7.cpp:51
+CHIMERA_TSV_HEADER = ("seg5_taxon_id\tseg3_taxon_id\tseg5_taxon_anno\t"
+                      "seg3_taxon_anno\tchimera_lod")  # hmmufotu.cpp:57
 DEFAULT_BATCH = 64          # CPU default
 DEFAULT_BATCH_GPU = 2048
 STRAND_CONFIDENCE = 0.9     # hmmufotu.cpp:41
 MIN_STRAND_TEST = 10
-# options of the reference CLI that this port does not run yet
-UNPORTED = (("mates", "paired-end mates"), ("chimera", "--chimera"),
-            ("resume", "--resume"), ("mesh", "--mesh"),
-            ("mesh_tree", "--mesh-tree"))
+DEFAULT_COORDINATOR = "localhost:29500"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,7 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the tree message tensors over all local "
                         "devices (capacity mode for DBs whose per-edge "
                         "messages exceed one chip's HBM)")
-    p.add_argument("--coordinator", default="localhost:29500",
+    p.add_argument("--coordinator", default=DEFAULT_COORDINATOR,
                    help="coordinator address for "
                         "multi-host runs")
     p.add_argument("--num-processes", type=int, default=1,
@@ -137,6 +139,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="this process's id in a multi-host run")
     p.add_argument("-v", action="count", default=0, dest="verbose")
     return p
+
+
+def unported_flag(args) -> str | None:
+    """The first mesh or multi-process flag given, or None: this port
+    has no parallel layer yet and refuses them."""
+    for flag, given in (
+            ("--mesh", args.mesh), ("--mesh-tree", args.mesh_tree),
+            ("--num-processes", args.num_processes > 1),
+            ("--process-id", args.process_id is not None),
+            ("--coordinator", args.coordinator != DEFAULT_COORDINATOR)):
+        if given:
+            return flag
+    return None
 
 
 def aln_tsv(aln: HmmAlignment) -> str:
@@ -158,6 +173,13 @@ def place_tsv(tree, place: PTPlacement | None) -> str:
             f"{place.loglik:g}\t{place.q_place:g}\t{place.q_taxon:g}")
 
 
+def aligned_record(read, aln: HmmAlignment) -> PrimarySeq:
+    """The --align-out fasta record of an aligned read."""
+    desc = (read.desc + f";csStart={aln.cs_start}"
+            f";csEnd={aln.cs_end};")
+    return PrimarySeq(read.id, aln.align, desc)
+
+
 def detect_strand(aligner, csfm, reads, mode, n_test, rng) -> int:
     """Strand auto-detection by alignment cost on the first reads
     (reference hmmufotu.cpp:500-545)."""
@@ -177,18 +199,63 @@ def detect_strand(aligner, csfm, reads, mode, n_test, rng) -> int:
                        "-t or set -s manually")
 
 
+def check_chimera(tree, aln, seq, seeds, args):
+    """Segment-placement chimera check (reference hmmufotu.cpp:653-691),
+    on the host in f64.
+
+    Returns (is_chimera, lod, best5, best3)."""
+    num_seg = args.num_segment
+    seg_len = (aln.cs_end - aln.cs_start + 1) // num_seg
+    seg5, seg3 = [], []
+    for n in range(num_seg):
+        s0 = aln.cs_start + n * seg_len        # 1-based
+        e0 = s0 + seg_len - 1
+        seg_seeds = [
+            type(s)(s0 - 1, e0 - 1, s.id,
+                    p_dist(seq, tree.seqs[s.id], s0 - 1, e0 - 1))
+            for s in seeds]
+        places = pl.estimate_seq(tree, seq, seg_seeds, args.method)
+        places = pl.filter_placements(places, args.chimera_err)
+        places = pl.place_seq(tree, seq, places, args.max_height)
+        (seg5 if n < num_seg // 2 else seg3).extend(places)
+    seg5.sort(key=lambda p: -p.loglik)
+    seg3.sort(key=lambda p: -p.loglik)
+    b5, b3 = seg5[0], seg3[0]
+
+    def alt(best, other):
+        loc = type(seeds[0])(best.start, best.end, other.c_node,
+                             p_dist(seq, tree.seqs[best.c_node],
+                                    best.start, best.end))
+        p = tree.estimate_seq(seq, loc, args.method)
+        tree.place_seq(seq, p, args.max_height)
+        return p
+
+    alt5 = alt(b5, b3)
+    alt3 = alt(b3, b5)
+    lod = b5.loglik - alt5.loglik + b3.loglik - alt3.loglik
+    is_chi = (b5.a_node != b3.a_node) and lod > args.chimera_lod
+    return is_chi, lod, b5, b3
+
+
+def read_done_ids(path: str) -> set[str]:
+    """Ids of the reads an earlier run already wrote to `path`."""
+    done = set()
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("#") or line.startswith("id\t"):
+                continue
+            done.add(line.split("\t", 1)[0])
+    return done
+
+
 def main(argv=None, device="cuda") -> int:
     """Run the assigner; device="cuda" (default) or "cpu"."""
     argv = argv if argv is not None else sys.argv[1:]
     args = build_parser().parse_args(argv)
     setup_logging(args.verbose + 1)
-    for attr, name in UNPORTED:
-        if getattr(args, attr):
-            log.error("%s is not supported by this port yet", name)
-            return 2
-    if args.num_processes > 1 or args.num_segment != 2:
-        log.error("--num-processes/--num-segment are not supported by "
-                  "this port yet")
+    flag = unported_flag(args)
+    if flag:
+        log.error("%s is not supported by this port yet", flag)
         return 2
     dev = resolve_device(device)
     # without -S the FM-index occurrence choice is deterministic; -S
@@ -202,7 +269,8 @@ def main(argv=None, device="cuda") -> int:
 
     db = Database.load(args.db)
     tree, hmm, csfm = db.ptu, db.hmm, db.csfm
-    mode = GLOBAL if args.single else NGCL
+    paired = bool(args.mates)
+    mode = GLOBAL if (paired or args.single) else NGCL
     hmm.set_sequence_mode(mode)
     hmm.wing_retract()
     aligner = ViterbiAligner(hmm, device=dev)
@@ -211,6 +279,11 @@ def main(argv=None, device="cuda") -> int:
 
     from ..alphabet import DNA
     fwd_reads = list(read_seqs(args.reads))
+    rev_reads = list(read_seqs(args.mates)) if paired else []
+    if paired and len(rev_reads) != len(fwd_reads):
+        log.error("Unmatched number of forward/reverse reads")
+        return 1
+
     strand = args.strand
     if strand == 0:
         strand = detect_strand(aligner, csfm,
@@ -218,9 +291,14 @@ def main(argv=None, device="cuda") -> int:
                                max(args.test, MIN_STRAND_TEST), rng)
         log.info("Read strand determined as %d", strand)
     if strand == 2:
-        for r in fwd_reads:
-            r.seq = DNA.revcom(r.seq)
+        if paired:
+            fwd_reads, rev_reads = rev_reads, fwd_reads
+        else:
+            for r in fwd_reads:
+                r.seq = DNA.revcom(r.seq)
 
+    # device placer for the batched SEP path (chimera checking places
+    # on the host per segment)
     placer = None
     if not args.align_only:
         import torch
@@ -248,56 +326,182 @@ def main(argv=None, device="cuda") -> int:
             msg_dtype=torch.bfloat16 if args.msg_bf16 else None,
             site_window=site_window, ref_rank=args.ref_rank)
 
-    out = sys.stdout if args.out == "-" else open(args.out, "w")
-    aln_out = SeqWriter(open(args.align_out, "w")) if args.align_out \
-        else None
+    # restartable batches: on --resume, skip reads already present in
+    # the output and append
+    done_ids = set()
+    mode_out = "w"
+    if args.resume and args.out != "-" and os.path.exists(args.out):
+        done_ids = read_done_ids(args.out)
+        mode_out = "a"
+        log.info("Resuming: %d reads already assigned", len(done_ids))
+    if done_ids:
+        keep = [t for t, r in enumerate(fwd_reads)
+                if r.id not in done_ids]
+        fwd_reads = [fwd_reads[t] for t in keep]
+        if paired:
+            rev_reads = [rev_reads[t] for t in keep]
+
+    chim_cols = ("\t" + CHIMERA_TSV_HEADER + "\t") if args.chimera \
+        else "\t"
+    header = ("id\tdescription\t" + ALN_TSV_HEADER + chim_cols
+              + PLACEMENT_TSV_HEADER + "\n")
+    out = sys.stdout if args.out == "-" else open(args.out, mode_out)
+    chi_out = aln_out = None
     try:
-        out.write(prog_header([PROG_NAME] + list(argv)))
-        out.write("id\tdescription\t" + ALN_TSV_HEADER + "\t"
-                  + PLACEMENT_TSV_HEADER + "\n")
-        if args.align_only:
-            batches = ((fwd_reads[lo:lo + args.batch],
-                        pl.align_reads(aligner, csfm,
-                                       [r.seq for r in
-                                        fwd_reads[lo:lo + args.batch]],
-                                       args.seed_len, args.seed_region,
-                                       mode, rng), None)
-                       for lo in range(0, len(fwd_reads), args.batch))
+        if mode_out == "w":
+            out.write(prog_header([PROG_NAME] + list(argv)))
+            out.write(header)
+        if args.chimera_out:
+            chi_out = open(args.chimera_out, "w")
+            chi_out.write(prog_header([PROG_NAME] + list(argv)))
+            chi_out.write(header)
+        if args.align_out:
+            aln_out = SeqWriter(open(args.align_out, "w"))
+        if not paired and not args.chimera and not args.align_only:
+            n_assigned = stream_single(args, aligner, csfm, tree, placer,
+                                       fwd_reads, mode, rng, out, aln_out)
         else:
-            def stream():
-                lo = 0
-                for alns, best in pl.assign_stream(
-                        aligner, csfm, tree, placer,
-                        [r.seq for r in fwd_reads], args.batch,
-                        args.seed_len, args.seed_region, mode, rng,
-                        args.max_diff, args.max_height, args.err,
-                        args.prior, args.ml_only):
-                    yield fwd_reads[lo:lo + len(alns)], alns, best
-                    lo += len(alns)
-            batches = stream()
-        n_done = n_assigned = 0
-        for reads, alns, best_batch in batches:
-            for t, (read, aln) in enumerate(zip(reads, alns)):
-                best = best_batch[t] if best_batch is not None else None
-                if aln_out and aln.is_valid():
-                    from ..seq import PrimarySeq
-                    desc = (read.desc + f";csStart={aln.cs_start}"
-                            f";csEnd={aln.cs_end};")
-                    aln_out.write(PrimarySeq(read.id, aln.align, desc))
-                if best is not None:
-                    n_assigned += 1
-                out.write(f"{read.id}\t{read.desc}\t" + aln_tsv(aln)
-                          + "\t" + place_tsv(tree, best) + "\n")
-            n_done += len(alns)
-            out.flush()
-            log.info("Processed %d reads", n_done)
+            n_assigned = batch_loop(args, aligner, csfm, tree, placer,
+                                    fwd_reads, rev_reads, mode, rng, out,
+                                    chi_out, aln_out)
         log.info("Assigned %d of %d reads", n_assigned, len(fwd_reads))
     finally:
-        if aln_out:
-            aln_out.close()
+        for f in (chi_out, aln_out):
+            if f:
+                f.close()
         if out is not sys.stdout:
             out.close()
     return 0
+
+
+def stream_single(args, aligner, csfm, tree, placer, fwd_reads, mode, rng,
+                  out, aln_out) -> int:
+    """Single-end reads without chimera checking: the double-buffered
+    stream (device work of the next batch overlaps host work).  Returns
+    the number of reads assigned."""
+    lo = n_assigned = 0
+    for alns, best_batch in pl.assign_stream(
+            aligner, csfm, tree, placer, [r.seq for r in fwd_reads],
+            args.batch, args.seed_len, args.seed_region, mode, rng,
+            args.max_diff, args.max_height, args.err, args.prior,
+            args.ml_only):
+        for t, aln in enumerate(alns):
+            read = fwd_reads[lo + t]
+            best = best_batch[t]
+            if aln_out and aln.is_valid():
+                aln_out.write(aligned_record(read, aln))
+            if best is not None:
+                n_assigned += 1
+            out.write(f"{read.id}\t{read.desc}\t" + aln_tsv(aln)
+                      + "\t" + place_tsv(tree, best) + "\n")
+        lo += len(alns)
+        out.flush()
+        log.info("Processed %d reads", lo)
+    return n_assigned
+
+
+def batch_loop(args, aligner, csfm, tree, placer, fwd_reads, rev_reads,
+               mode, rng, out, chi_out, aln_out) -> int:
+    """Paired-end mates, chimera checking or --align-only, one batch at a
+    time (reference package's loop, hmmufotu_tpu/cli/assign.py:450-549).
+    The -S rng is consumed by the forward reads' alignment, then by the
+    reverse-complemented mates'.  Returns the number of reads
+    assigned."""
+    from ..alphabet import DNA
+    paired = bool(rev_reads)
+    n_assigned = 0
+    for lo in range(0, len(fwd_reads), args.batch):
+        batch = fwd_reads[lo:lo + args.batch]
+        alns = pl.align_reads(aligner, csfm, [r.seq for r in batch],
+                              args.seed_len, args.seed_region, mode, rng)
+        rev_alns = [None] * len(batch)
+        if paired:
+            mates = [DNA.revcom(r.seq)
+                     for r in rev_reads[lo:lo + args.batch]]
+            rev_alns = pl.align_reads(aligner, csfm, mates,
+                                      args.seed_len, args.seed_region,
+                                      mode, rng)
+        # orientation / merge pass
+        chim_flags = [False] * len(batch)
+        for t, (read, aln, rev_aln) in enumerate(
+                zip(batch, alns, rev_alns)):
+            if paired and rev_aln is not None:
+                if not args.ignore_orient and not (
+                        aln.cs_start <= rev_aln.cs_start
+                        and aln.cs_end <= rev_aln.cs_end):
+                    log.warning("Bad orientation of fwd/rev read %s, "
+                                "treating as chimera", read.id)
+                    chim_flags[t] = True
+                else:
+                    aln.merge(rev_aln)
+
+        # batched device placement when no chimera check places on the
+        # host
+        best_batch = [None] * len(batch)
+        if not args.align_only and not args.chimera:
+            place_alns = [HmmAlignment() if chim_flags[t] else aln
+                          for t, aln in enumerate(alns)]
+            best_batch = pl.assign_batch_device(
+                tree, placer, place_alns, args.max_diff, args.max_height,
+                args.err, args.prior, args.ml_only)
+
+        for t, (read, aln) in enumerate(zip(batch, alns)):
+            is_chimera = chim_flags[t]
+            seq = None
+            seeds = []
+            if args.chimera and not is_chimera:
+                seq = pl.aln_to_digital(tree, aln)
+                seeds = pl.get_seed(tree, seq, aln.cs_start - 1,
+                                    aln.cs_end - 1, args.max_diff,
+                                    args.max_height, args.max_nseed)
+            lod = math.nan
+            b5 = b3 = None
+            if args.chimera and not is_chimera and seeds:
+                is_chimera, lod, b5, b3 = check_chimera(
+                    tree, aln, seq, seeds, args)
+            chim_str = ""
+            if args.chimera:
+                if b5 is not None:
+                    chim_str = (f"\t{b5.a_node}\t{b3.a_node}\t"
+                                f"{tree.anno[b5.a_node]}\t"
+                                f"{tree.anno[b3.a_node]}\t{lod:g}")
+                else:
+                    chim_str = "\tnan\tnan\tnan\tnan\tnan"
+
+            if is_chimera:
+                if chi_out:
+                    chi_out.write(f"{read.id}\t{read.desc}\t"
+                                  + aln_tsv(aln) + chim_str + "\t"
+                                  + place_tsv(tree, None) + "\n")
+                continue
+            if aln_out:
+                aln_out.write(aligned_record(read, aln))
+            best = None
+            if not args.align_only:
+                if args.chimera and seeds:
+                    # chimera mode already has host seeds; finish the
+                    # host SEP path with them
+                    places = pl.estimate_seq(tree, seq, seeds,
+                                             args.method)
+                    places = pl.filter_placements(places, args.err)
+                    places = pl.place_seq(tree, seq, places,
+                                          args.max_height)
+                    if args.ml_only:
+                        places.sort(key=lambda p: -p.loglik)
+                    else:
+                        pl.calc_q_values(tree, places, args.prior)
+                        places.sort(key=lambda p: -p.q_place)
+                    best = places[0]
+                elif not args.chimera:
+                    best = best_batch[t]
+                if best is not None:
+                    n_assigned += 1
+            out.write(f"{read.id}\t{read.desc}\t" + aln_tsv(aln)
+                      + chim_str + "\t" + place_tsv(tree, best) + "\n")
+        out.flush()
+        log.info("Processed %d reads", min(lo + args.batch,
+                                           len(fwd_reads)))
+    return n_assigned
 
 
 if __name__ == "__main__":

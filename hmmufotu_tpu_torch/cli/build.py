@@ -6,7 +6,8 @@ from an MSA fasta + Newick tree: MSA prune -> CSFM index -> HMM train
 sweep instead of the reference's N rerooted sweeps,
 hmmufotu-build.cpp:455-459) -> optional discrete-Gamma shape fit ->
 ancestral inference -> save.  The likelihood sweep is the numpy f64
-engine (phylo/tree.py evaluate); a device engine is later work.
+engine by default; --eval-engine torch runs it as f32 tensor ops on the
+device (phylo/tree.py evaluate).
 """
 
 from __future__ import annotations
@@ -75,16 +76,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "regardless). f16 is rejected on large trees: "
                         "per-site message magnitudes grow ~linearly with "
                         "leaf count and overflow float16 near the root")
+    p.add_argument("--eval-engine", default="numpy",
+                   choices=["numpy", "torch"],
+                   help="likelihood sweep engine: numpy = f64 "
+                        "reference-exact; torch = blocked f32 tensor ops "
+                        "on the device, for gg_97-scale trees")
     p.add_argument("-v", action="count", default=0, dest="verbose")
     return p
 
 
-def main(argv=None) -> int:
+def main(argv=None, device="cuda") -> int:
+    """Build and save a DB; ``device`` ("cuda" by default, or "cpu")
+    runs the torch evaluate engine and nothing else."""
     args = build_parser().parse_args(argv)
     setup_logging(args.verbose + 1)
     db_name = args.db_name or os.path.basename(args.msa_file).rsplit(
         ".", 1)[0]
-    db = build_database(args, db_name)
+    db = build_database(args, db_name, device)
     if db is None:
         return 1
     db.save(db_name)
@@ -92,9 +100,10 @@ def main(argv=None) -> int:
     return 0
 
 
-def build_database(args, db_name: str) -> Database | None:
+def build_database(args, db_name: str, device="cuda") -> Database | None:
     """The four DB artifacts in memory, from parsed build arguments;
-    None (after logging why) when the inputs are inconsistent."""
+    None (after logging why) when the inputs are inconsistent.
+    ``device`` is that of the torch evaluate engine."""
     msa = MSA.load_fasta(args.msa_file, name=db_name)
     msa.prune()
     log.info("MSA database created for %d X %d aligned sequences",
@@ -146,7 +155,8 @@ def build_database(args, db_name: str) -> Database | None:
                   "~2000 nodes); use f32 or f64", tree.num_nodes)
         return None
     log.info("Evaluating phylogenetic tree (single two-pass sweep)")
-    tree.evaluate(dtype=msg_dtype)
+    tree.evaluate(dtype=msg_dtype, engine=args.eval_engine,
+                  device=device)
 
     if args.var:
         muts = tree.estimate_num_mutations()
@@ -158,7 +168,8 @@ def build_database(args, db_name: str) -> Database | None:
             log.info("Estimated dGamma alpha = %g", alpha)
             tree.dg = DiscreteGammaModel(alpha, args.dg_k)
             # re-evaluate with the rate mixture
-            tree.evaluate(dtype=msg_dtype)
+            tree.evaluate(dtype=msg_dtype, engine=args.eval_engine,
+                          device=device)
 
     log.info("Final tree log-likelihood: %.6f", tree.tree_loglik())
     tree.infer_seq()

@@ -512,7 +512,7 @@ class PTUnrooted:
 
     def evaluate(self, dtype=np.float64,
                  budget_bytes: int = 2 << 30, engine: str = "numpy",
-                 sites: tuple[int, int] | None = None):
+                 sites: tuple[int, int] | None = None, device="cuda"):
         """Fill msg_up and msg_down for every directed edge with one
         post-order and one pre-order sweep.
 
@@ -529,8 +529,11 @@ class PTUnrooted:
         pass np.float32/np.float16 at reference scale (the .ptu file
         stores f32 regardless, tree.save()).
 
-        ``engine``: "numpy" computes in f64 (reference-exact); it is
-        the only engine of this package.
+        ``engine``: "numpy" computes in f64 (reference-exact, used for
+        parity); "torch" runs the identical blocked recurrence as f32
+        tensor ops on ``device`` (default "cuda"; "cpu" only when asked
+        for), the counterpart of the reference package's "jax" engine.
+        ``device`` is used by the torch engine only.
 
         ``sites=(lo, hi)``: fill messages only for CS columns
         [lo, hi).  Per-site independence makes the restriction exact;
@@ -539,6 +542,8 @@ class PTUnrooted:
         This is the amplicon capacity mode: a window-resident placer
         (placement.DeviceTree site_window) only ever reads the window.
         """
+        if engine == "torch":
+            return self._evaluate_torch(dtype, budget_bytes, sites, device)
         if engine != "numpy":
             raise ValueError(f"unknown evaluate engine '{engine}'")
         N, L = self.num_nodes, self.cs_len
@@ -612,6 +617,130 @@ class PTUnrooted:
                 S = tot[pidx] - conv
                 dn[ch] = row_mean_exp_scaled(S) if K > 1 else S[:, :, :, 0]
             self.msg_down[:, :, s0:s1] = dn
+
+    def _evaluate_torch(self, dtype, budget_bytes: int,
+                        sites: tuple[int, int] | None, device):
+        """The blocked level sweep of evaluate() as f32 tensor ops on one
+        torch device: the counterpart of the reference package's
+        _evaluate_jax (hmmufotu_tpu/phylo/tree.py:695-835).  A level is
+        one set of tensors, not padded fixed-size chunks (those exist
+        there only for XLA-CPU compile time).  The message arrays stay
+        host numpy of storage ``dtype``; each site block is computed on
+        the device and copied back.
+
+        Each parent's sum over its children gathers the level's child
+        convolutions into [n_parents, max_degree, K, 4, B], padded with
+        0 (a convolution is finite: P > 0 and exp(V - max) has a 1 per
+        column), and sums by .sum(1): the same order of summation on
+        every run, where index_add_ would sum by float atomics on a
+        card."""
+        import torch
+        from .._cuda import resolve_device
+        dev = resolve_device(device)
+        N, L = self.num_nodes, self.cs_len
+        K = len(self._rates())
+        self.msg_up = np.zeros((N, 4, L), dtype=dtype)
+        self.msg_down = np.zeros((N, 4, L), dtype=dtype)
+        if N == 0 or L == 0:
+            return
+        maxd, lvl, P, seq_leaves, root_is_leaf = self._level_plan()
+        f32 = torch.float32
+        P = torch.as_tensor(P.astype(np.float32), device=dev)  # [N,K,4,4]
+        logpi = torch.as_tensor(np.log(self.model.pi).astype(np.float32),
+                                device=dev)
+        states = torch.arange(4, dtype=torch.int8, device=dev)
+
+        def index(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+        # per level: children (sorted by parent), parents, each parent's
+        # child slots into the level's children (the pad row n past a
+        # parent's degree), each child's parent rank, and the parents
+        # that have a parent of their own (their rows, their ids)
+        plans = [None] * (maxd + 1)
+        rows_max = 1
+        for d in range(1, maxd + 1):
+            ch, starts, pars = lvl[d]
+            n, npar = len(ch), len(pars)
+            deg = np.diff(np.r_[starts, n])
+            j = np.arange(int(deg.max()))[None, :]
+            slot = np.where(j < deg[:, None], starts[:, None] + j, n)
+            has_pp = self.parent[pars] >= 0
+            plans[d] = (index(ch), index(pars), index(slot),
+                        index(np.repeat(np.arange(npar), deg)),
+                        index(np.nonzero(has_pp)[0]), index(pars[has_pp]))
+            # f32 rows of 4 x K a site: convolutions, the padded gather,
+            # parent totals and the down sweep's differences
+            rows_max = max(rows_max, 3 * n + npar * (slot.shape[1] + 1))
+        B = max(32, int(budget_bytes // ((2 * N + rows_max * K) * 16)))
+        B = min(B, L)
+
+        def conv(Pn, V):
+            # Pn [n,K,4,4], V [n,4,B] -> [n,K,4,B] log(P @ exp(V)) with
+            # per-column max scaling (dot_product_scaled)
+            m = V.amax(1, keepdim=True)
+            scale = torch.where(torch.isfinite(m), m, 0.0)
+            E = torch.exp(V - scale)
+            return torch.log(torch.einsum("nkij,njb->nkib", Pn, E)) \
+                + scale[:, None]
+
+        def collapse(acc):
+            # [m,K,4,B] -> [m,4,B] (row_mean_exp_scaled over rates)
+            if K == 1:
+                return acc[:, 0]
+            m = acc.amax(1, keepdim=True)
+            sc = torch.where(torch.isfinite(m), m, 0.0)
+            return torch.log(torch.exp(acc - sc).mean(1)) + sc[:, 0]
+
+        def child_sums(ch, slot, src):
+            # [npar,K,4,B]: each parent's sum of its child convolutions
+            c = conv(P[ch], src[ch])
+            padded = torch.cat([c, c.new_zeros((1,) + c.shape[1:])])
+            return c, padded[slot].sum(1)
+
+        def leaf_rows(ids, s0, s1):
+            # [n,4,B] leaf conditional logliks: 0 at the observed base,
+            # -inf at the others, log(pi) at gaps (leaf_loglik)
+            codes = torch.as_tensor(self.seqs[ids, s0:s1], device=dev)
+            eq = codes[:, None, :] == states[None, :, None]
+            return torch.where(
+                (codes >= 0)[:, None, :],
+                torch.where(eq, 0.0, -torch.inf).to(f32),
+                logpi[None, :, None].expand(len(ids), 4, s1 - s0))
+
+        root = np.array([self.root])
+        leaves = index(seq_leaves)
+        lo, hi = (0, L) if sites is None else sites
+        for s0 in range(lo, hi, B):
+            s1 = min(s0 + B, hi)
+            w = s1 - s0
+            up = torch.zeros((N, 4, w), dtype=f32, device=dev)
+            if len(seq_leaves):
+                up[leaves] = leaf_rows(seq_leaves, s0, s1)
+
+            # ---- up sweep -------------------------------------------
+            for d in range(maxd, 0, -1):
+                ch, pars, slot = plans[d][:3]
+                up[pars] = collapse(child_sums(ch, slot, up)[1])
+            if root_is_leaf and self.has_seq[self.root]:
+                up[self.root] += leaf_rows(root, s0, s1)[0]
+            self.msg_up[:, :, s0:s1] = up.cpu().numpy()
+
+            # ---- down sweep -----------------------------------------
+            dn = torch.zeros((N, 4, w), dtype=f32, device=dev)
+            for d in range(0, maxd):
+                ch, pars, slot, prank, pp_rows, pp = plans[d + 1]
+                if d == 0 and root_is_leaf:
+                    if self.has_seq[self.root]:
+                        dn[ch[0]] = leaf_rows(root, s0, s1)[0]
+                    continue
+                c, tot = child_sums(ch, slot, up)
+                # add each parent's own down-message convolution
+                if len(pp):
+                    tot[pp_rows] += conv(P[pp], dn[pp])
+                # children: collapse(tot[parent] - conv(child))
+                dn[ch] = collapse(tot[prank] - c)
+            self.msg_down[:, :, s0:s1] = dn.cpu().numpy()
 
     def node_loglik(self, u: int) -> np.ndarray:
         """[4, L] in-message at u combining ALL its neighbors — equals

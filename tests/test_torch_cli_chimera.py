@@ -1,0 +1,94 @@
+"""Chimera checking of the port's assign on the CPU, against the
+reference package's CLI on the 70_otus fixture DB.
+
+With -C the device only aligns; each read's segments are placed on the
+host in f64 by the same functions in both packages, so with equal
+alignments the two give the same rows byte for byte: the same chimera
+decisions and lods, the same --chimera-out rows and the same placements
+of the clean reads.  The synthetic chimera is that of
+tests/test_pipeline.py TestChimera."""
+
+import numpy as np
+import pytest
+
+from test_torch_pipeline import (db_prefix, one_torch_thread,  # noqa: F401
+                                 simulate_reads)
+
+N_CLEAN = 12
+
+
+def ungapped(tree, u, lo, n):
+    codes = tree.seqs[u]
+    pos = np.nonzero(codes >= 0)[0]
+    return "".join("ACGT"[c] for c in codes[pos[lo:lo + n]])
+
+
+@pytest.fixture(scope="module")
+def chimera_reads(db_prefix, tmp_path_factory):  # noqa: F811
+    """A contiguous chimera (5' of an archaeon, 3' of a bacterium at the
+    same ungapped offset), one clean read of the bacterium and N_CLEAN
+    simulated reads."""
+    from hmmufotu_tpu_torch.db import Database
+    tree = Database.load(db_prefix).ptu
+    leaves = [u for u in range(tree.num_nodes)
+              if tree.is_leaf(u) and tree.msa_id[u] >= 0]
+    u5 = next(u for u in leaves if tree.anno[u].startswith("k__Arch"))
+    u3 = next(u for u in leaves if tree.anno[u].startswith("k__Bact"))
+    recs = [("chimera", ungapped(tree, u5, 10, 120)
+             + ungapped(tree, u3, 130, 120)),
+            ("clean", ungapped(tree, u3, 400, 240))]
+    recs += [(f"s{i}", s) for i, s in
+             enumerate(simulate_reads(tree, N_CLEAN, seed=5))]
+    path = tmp_path_factory.mktemp("chim") / "chim.fasta"
+    path.write_text("".join(f">{rid}\n{s}\n" for rid, s in recs))
+    return str(path)
+
+
+def body(path):
+    return [line for line in open(path) if not line.startswith("#")]
+
+
+@pytest.mark.parametrize("num_segment", [2, 4])
+def test_chimera_rows_match_reference(db_prefix, chimera_reads,  # noqa: F811
+                                      tmp_path, num_segment):
+    from hmmufotu_tpu.cli.assign import main as ref_main
+    from hmmufotu_tpu_torch.cli.assign import main
+    got = {}
+    for tag, fn in (("ref", ref_main),
+                    ("port", lambda a: main(a, device="cpu"))):
+        out, chi = tmp_path / f"{tag}.tsv", tmp_path / f"{tag}_chi.tsv"
+        assert fn([db_prefix, chimera_reads, "-o", str(out), "-C",
+                   "--num-segment", str(num_segment), "--chimera-out",
+                   str(chi), "-S", "0", "-s", "1"]) == 0
+        got[tag] = (body(out), body(chi))
+    assert got["port"] == got["ref"]
+    rows, chi_rows = got["port"]
+    head = rows[0].rstrip("\n").split("\t")
+    assert head[10:15] == ["seg5_taxon_id", "seg3_taxon_id",
+                           "seg5_taxon_anno", "seg3_taxon_anno",
+                           "chimera_lod"]
+    main_ids = {r.split("\t")[0] for r in rows[1:]}
+    chi_ids = {r.split("\t")[0] for r in chi_rows[1:]}
+    assert len(main_ids) + len(chi_ids) == N_CLEAN + 2
+    assert "clean" in main_ids
+    lods = {r.split("\t")[0]: float(r.split("\t")[14]) for r in rows[1:]}
+    assert all(np.isfinite(v) for v in lods.values())
+    if num_segment == 2:
+        assert "chimera" in chi_ids
+        assert not chi_ids & ({"clean"} | {f"s{i}" for i in range(N_CLEAN)})
+
+
+@pytest.mark.parametrize("flag", [["--mesh"], ["--mesh-tree"],
+                                  ["--num-processes", "2"],
+                                  ["--process-id", "0"],
+                                  ["--coordinator", "localhost:1234"]],
+                         ids=lambda f: f[0])
+def test_mesh_and_multiprocess_flags_refused(tmp_path, flag, caplog):
+    """The mesh and multi-process flags need a parallel layer the port
+    does not have: the CLI refuses them before it loads anything."""
+    from hmmufotu_tpu_torch.cli.assign import main
+    reads = tmp_path / "r.fasta"
+    reads.write_text(">r\nACGT\n")
+    assert main([str(tmp_path / "no_db"), str(reads)] + flag,
+                device="cpu") == 2
+    assert f"{flag[0]} is not supported" in caplog.text

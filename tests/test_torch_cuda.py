@@ -9,7 +9,9 @@ They import nothing of JAX.  Tolerances: K1's comb and K4's planes are
 bit-equal; K2 and K3 as in test_torch_place.py, since the kernels sum
 sites in block reductions and the plain versions in torch's order; K5's
 p within 1e-6 absolute + 1e-5 relative for the same reason (a lane may
-also stop one step apart inside BRANCH_EPS of its limit)."""
+also stop one step apart inside BRANCH_EPS of its limit).  Beside the
+kernels: the torch evaluate engine on the card against the numpy f64
+engine, and paired-end assign on the card against the port's CPU run."""
 
 import os
 
@@ -34,17 +36,22 @@ def cuda():
 
 
 @pytest.fixture(scope="module")
-def db(cuda, tmp_path_factory):
+def db_prefix(cuda, tmp_path_factory):
     """The 70_otus GTR+dGamma4 DB built by the port's builder."""
     from hmmufotu_tpu_torch.cli.build import main as build_main
-    from hmmufotu_tpu_torch.db import Database
-    from hmmufotu_tpu_torch.hmm import NGCL
     prefix = str(tmp_path_factory.mktemp("db") / "70_otus")
     assert build_main([os.path.join(FIXTURES, "70_otus.fasta"),
                        os.path.join(FIXTURES, "70_otus.tree"),
                        "-a", os.path.join(FIXTURES, "70_otus_taxonomy.txt"),
                        "-n", prefix, "-s", "GTR", "-V"]) == 0
-    d = Database.load(prefix)
+    return prefix
+
+
+@pytest.fixture(scope="module")
+def db(db_prefix):
+    from hmmufotu_tpu_torch.db import Database
+    from hmmufotu_tpu_torch.hmm import NGCL
+    d = Database.load(db_prefix)
     d.hmm.set_sequence_mode(NGCL)
     d.hmm.wing_retract()
     return d
@@ -337,3 +344,63 @@ def test_fixed_point_kernel_live_extremes(cuda, W, case):
     assert torch.equal(got, want)
     if case == "saturating":
         assert float(got[3]) >= float(cf.SAT_P) > float(p0[3])
+
+
+def test_torch_evaluate_engine_on_card(db):
+    """The torch evaluate engine on the card against the numpy f64 engine
+    on the fixture tree (GTR+dGamma4), with several site blocks: the same
+    -inf pattern, max |delta| < 0.05, tree loglik within 1e-5 relative
+    (the reference package's tolerances between its engines); two runs
+    bit-equal."""
+    import copy
+    tree = copy.deepcopy(db.ptu)
+    tree.evaluate()
+    want = (tree.msg_up.copy(), tree.msg_down.copy())
+    ll64 = tree.tree_loglik()
+    runs = []
+    for _ in range(2):
+        tree.evaluate(dtype=np.float32, engine="torch",
+                      budget_bytes=32 << 20, device="cuda")
+        runs.append((tree.msg_up.copy(), tree.msg_down.copy()))
+    for a, b, c in zip(runs[0], runs[1], want):
+        assert np.array_equal(a, b)
+        assert ((a == -np.inf) == (c == -np.inf)).all()
+        f = np.isfinite(c)
+        assert np.abs(a[f] - c[f]).max() < 0.05
+    assert abs(tree.tree_loglik() - ll64) / abs(ll64) < 1e-5
+
+
+@pytest.mark.parametrize("insert", [400, 600])
+def test_pe_assign_on_card_matches_cpu(db_prefix, tmp_path, insert):
+    """Paired-end assign on the card (K1 in GLOBAL mode on the mates, K2
+    and K3 on the merged reads; 600 bp inserts give merged reads wider
+    than the placer's window) against the port's CPU run: the same rows,
+    with branch ratios and logliks within the placement tolerances."""
+    from hmmufotu_tpu_torch.cli.assign import main
+    from hmmufotu_tpu_torch.cli.sim import main as sim_main
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    r1, r2 = str(tmp_path / "pe_1.fa"), str(tmp_path / "pe_2.fa")
+    assert sim_main([db_prefix, r1, "-m", r2, "-N", "24", "-S", "7",
+                     "--mean-size", str(insert), "--sd-size", "20",
+                     "-l", "150"]) == 0
+    counters = (cv.viterbi_traced_cuda.launches, cp.est_cuda.launches,
+                cp.sep_cuda.launches)
+    n0 = [c.n for c in counters]
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.tsv"
+        assert main([db_prefix, r1, r2, "-o", str(out), "-S", "0",
+                     "-b", "32"], device=dev) == 0
+        rows[dev] = [line.rstrip("\n").split("\t") for line in open(out)
+                     if not line.startswith("#")]
+        if dev == "cuda":
+            assert all(c.n > k for c, k in zip(counters, n0))
+    assert len(rows["cuda"]) == len(rows["cpu"]) > 1
+    for g, c in zip(rows["cuda"][1:], rows["cpu"][1:]):
+        assert g[:10] == c[:10]            # id .. alignment
+        # branch and taxon
+        assert (g[10], g[12], g[13]) == (c[10], c[12], c[13])
+        assert float(g[11]) == pytest.approx(float(c[11]), abs=BRANCH_ATOL)
+        assert float(g[15]) == pytest.approx(float(c[15]), rel=LL_RTOL,
+                                             abs=LL_ATOL)

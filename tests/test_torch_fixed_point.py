@@ -30,6 +30,7 @@ import torch
 
 from test_torch_place import (BRANCH_ATOL, LL_ATOL, LL_RTOL,  # noqa: F401
                               lane_inputs, leaf_reads, model_inputs, trees)
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 

@@ -14,10 +14,24 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 BRANCH_ATOL = 2e-3
 LL_RTOL, LL_ATOL = 1e-4, 0.5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch CPU thread while a test module runs: the suite runs test
+    files in parallel worker processes, and a torch thread pool of every
+    core in each of them oversubscribes the cores (its threads spin),
+    several times slower than one thread each.  Test files of the port
+    import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

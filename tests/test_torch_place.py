@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401
+
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 BRANCH_ATOL = 2e-3
 LL_RTOL, LL_ATOL = 1e-4, 0.5

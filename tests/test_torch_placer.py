@@ -9,6 +9,7 @@ import pytest
 
 from test_torch_place import (BRANCH_ATOL, LL_ATOL, LL_RTOL,  # noqa: F401
                               leaf_reads, trees)
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 
 def test_place_batch_matches_reference(trees):

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401
+
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
 

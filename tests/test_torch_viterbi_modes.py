@@ -23,6 +23,7 @@ import torch
 
 from test_torch_viterbi import (dp_inputs, fixture_reads, port,  # noqa: F401
                                 ref)
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 N_ROWS = 64
 
