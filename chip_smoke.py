@@ -36,7 +36,8 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               and chimera rows byte for byte, the chimera flagged and no
               clean read;
   9. evaluate the torch evaluate engine on the card against the numpy f64
-              engine on the fixture tree, twice (bit-equal);
+              engine on the fixture tree, twice (bit-equal), its peak
+              device memory within its budget;
  10. scale    a synthetic DB of 16,384 leaves x 1,600 columns (GTR+dGamma4,
               leaf sequences evolved down the tree), 8,192 simulated
               250 bp reads in batches of 2,048: reads/s, per-kernel
@@ -45,7 +46,18 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               device memory, the host-clock stages of one batch, and 64
               reads compared with a CPU run; the torch evaluate engine on
               the synthetic tree against the messages of the DB build
-              (numpy engine), with both engines' wall time.
+              (numpy engine), with both engines' wall time;
+ 11. parallel the assign CLI with --mesh and --mesh-tree on the 1,024
+              fixture reads over the one-card mesh, against the CLI without
+              them; four shards on the one card (a mesh that names cuda:0
+              four times) at the scale shape, one batch of 2,048 reads:
+              sharded_place_batch against the single-device placement,
+              sharded_place_batch_tree with the host merge against it too,
+              with wall time, reads/s, peak memory and each shard's message
+              bytes; assign --num-processes 2 as two processes on the card
+              over gloo, starting from a build directory without the
+              libraries (both processes build at once), rows byte-equal to
+              the one-process run.
 
 Prints one `kernels` JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -102,6 +114,10 @@ SPIN_CYCLES_PER_CALL = 1_000_000
 # relative/absolute tolerances of tests/test_pipeline.py:210-216
 BRANCH_ATOL = 2e-3
 LL_RTOL, LL_ATOL = 1e-4, 0.5
+# Q values of the tree-sharded merge against the single-device
+# placement (tests/test_sharding.py:119-125), or their error
+# probabilities within Q_ULPS f32 ulps of 1 (q_close)
+Q_ATOL, Q_ULPS = 0.05, 4
 # K5's p against a plain version: summed in another order, a lane may
 # stop one step apart inside BRANCH_EPS = 1e-5 of its limit
 FP_ATOL, FP_RTOL = 1e-6, 1e-5
@@ -1073,20 +1089,27 @@ def evaluate_check(tree, want, budget_bytes=2 << 30, rtol=0.0):
     """The torch engine on the card against messages `want` (msg_up,
     msg_down, tree loglik) of the numpy engine on the same tree: the same
     -inf pattern, |delta| within EVAL_ATOL + rtol |value|, tree loglik
-    within EVAL_LL_RTOL.  Returns (ok, stats, the torch run's
-    messages)."""
+    within EVAL_LL_RTOL, and the device memory the engine allocates beyond
+    what was held before it within budget_bytes.  Returns (ok, stats,
+    the torch run's messages)."""
     import copy
     import torch
     t = copy.copy(tree)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     t.evaluate(dtype=np.float32, engine="torch", budget_bytes=budget_bytes,
                device="cuda")
     torch.cuda.synchronize()
     dt = time.time() - t0
-    peak = torch.cuda.max_memory_allocated()
-    stats = dict(torch_s=dt, peak_gib=peak / 2**30, inf_pattern_equal=True,
+    # the engine's own peak: what it allocated beyond the tensors held
+    # before it started
+    peak = torch.cuda.max_memory_allocated() - base
+    stats = dict(torch_s=dt, peak_gib=peak / 2**30,
+                 budget_gib=budget_bytes / 2**30,
+                 peak_within_budget=peak <= budget_bytes,
+                 inf_pattern_equal=True,
                  max_abs_diff=0.0, max_rel_diff=0.0, outside=0,
                  not_finite=0)
     for a, b in zip((t.msg_up, t.msg_down), want[:2]):
@@ -1104,7 +1127,8 @@ def evaluate_check(tree, want, budget_bytes=2 << 30, rtol=0.0):
     stats["loglik_rel_diff"] = abs(ll - want[2]) / abs(want[2])
     ok = (stats["inf_pattern_equal"] and stats["outside"] == 0
           and stats["not_finite"] == 0
-          and stats["loglik_rel_diff"] < EVAL_LL_RTOL)
+          and stats["loglik_rel_diff"] < EVAL_LL_RTOL
+          and stats["peak_within_budget"])
     return ok, stats, (t.msg_up, t.msg_down)
 
 
@@ -1145,6 +1169,232 @@ def sweep_timer():
         times.append(time.time() - t)
         return out
     return times, Patch((PTUnrooted, "evaluate", timed))
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer: meshes on the one card, two processes
+# ---------------------------------------------------------------------------
+
+def write_fasta(path, reads):
+    with open(path, "w") as fh:
+        fh.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(reads)))
+    return path
+
+
+def cli_rows(argv, out, device="cuda"):
+    """The port's assign CLI writing `out`; returns its body rows."""
+    from hmmufotu_tpu_torch.cli.assign import main as assign_main
+    if assign_main(argv + ["-o", out], device=device) != 0:
+        raise AssertionError(f"assign {' '.join(argv)} failed")
+    return read_rows(out)
+
+
+def parallel_cli(fx, fa, d):
+    """assign --mesh and --mesh-tree on the fixture reads over the
+    one-card mesh, launches counted from 0, rows against the CLI without
+    a mesh.  Returns the one-process rows."""
+    import torch
+    # no -S: the deterministic seed pick, which several processes allow
+    argv = [fx, fa, "-s", "1", "-b", str(N_FIXTURE_READS // 2)]
+    t = time.time()
+    plain = cli_rows(argv, os.path.join(d, "plain.tsv"))
+    log(f"[parallel] CLI without a mesh: {len(plain)} rows in "
+        f"{time.time() - t:.2f} s")
+    for flag in ("--mesh", "--mesh-tree"):
+        cnt = reset_counters()
+        t = time.time()
+        rows = cli_rows(argv + [flag], os.path.join(d, f"{flag[2:]}.tsv"))
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        launches = {k: cnt[k].n for k in MAIN_KERNELS}
+        ok, stats = compare_rows(rows, plain, 0.01)
+        log(f"[parallel] CLI {flag} over {torch.cuda.device_count()} "
+            f"card(s): {len(rows)} reads in {dt:.2f} s (DB load in), "
+            f"launches {launches}; vs the CLI without a mesh: "
+            f"{json.dumps(stats)}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"{flag}: a kernel was not launched: "
+                                 f"{launches}")
+        if not ok:
+            raise AssertionError(f"{flag} rows disagree with the plain CLI")
+    return plain
+
+
+def parallel_scale(sdb, reads, n_shards=4):
+    """Four shards on the one card at the scale shape: one batch of reads
+    aligned on the card, placed by the single-device placer, by
+    sharded_place_batch and by sharded_place_batch_tree + the host merge.
+    Gates: tests/test_sharding.py's (the same c node, loglik within 1e-5
+    relative; for the merge the same c and a nodes up to near ties, Q
+    values within 0.05 or as q_close says), K2 and K3 once a shard."""
+    import torch
+    from hmmufotu_tpu_torch import pipeline as pl
+    from hmmufotu_tpu_torch.hmm import NGCL, ViterbiAligner
+    from hmmufotu_tpu_torch.parallel import (sharded_place_batch,
+                                             sharded_place_batch_tree)
+    from hmmufotu_tpu_torch.parallel.sharding import Mesh, tree_shards
+    from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
+    tree = sdb.ptu
+    alns = pl.align_reads(ViterbiAligner(sdb.hmm, device="cuda"), sdb.csfm,
+                          reads, mode=NGCL)
+    placer = DevicePlacer(tree, window=512, device="cuda")
+    seqs, starts, ends, valid = pl._aln_windows(tree, placer, alns)
+    ends = np.minimum(ends, starts + placer.W - 1)
+    mesh = Mesh((torch.device("cuda", 0),) * n_shards)
+    single = placer.place_batch_win(seqs, starts, ends,
+                                    summary_only=True)["summary"]
+    card = card_line()
+
+    def timed(fn):
+        fn()                                        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cnt = reset_counters()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        return out, dt, {k: cnt[k].n for k in ("est", "sep_optimize")}, \
+            torch.cuda.max_memory_allocated()
+
+    B = len(reads)
+    data, dt, launches, peak = timed(lambda: sharded_place_batch(
+        mesh, placer, seqs, starts, ends))
+    rows = valid & (single[:, 11] > 0)
+    same_c = bool((data[:, 0] == single[:, 0]).all())
+    ll_rel = np.abs(data[rows, 5] - single[rows, 5]) \
+        / np.maximum(np.abs(single[rows, 5]), 1e-30)
+    n_bit = int((data == single).all(axis=1).sum())
+    log(f"[parallel] scale, sharded_place_batch on {n_shards} shards of "
+        f"one card ({card}): {B} reads in {dt:.3f} s ({B / dt:.1f} "
+        f"reads/s), launches {launches}, peak device memory "
+        f"{peak / 2**30:.2f} GiB; vs the single-device placement: same c "
+        f"node on every row {same_c}, max loglik rel diff "
+        f"{float(ll_rel.max(initial=0.0)):.3g}, rows bit-equal {n_bit} of "
+        f"{B}")
+    if not same_c or (ll_rel > 1e-5).any():
+        raise AssertionError("sharded_place_batch disagrees with the "
+                             "single-device placement")
+    if launches != {"est": n_shards, "sep_optimize": n_shards}:
+        raise AssertionError(f"sharded_place_batch launches {launches}")
+
+    union, dt, launches, peak = timed(lambda: sharded_place_batch_tree(
+        mesh, placer, seqs, starts, ends))
+    shard_bytes = [nbytes(dt_l.msg_up, dt_l.msg_down)
+                   for _, dt_l, _ in tree_shards(mesh, placer)]
+    whole = nbytes(placer.dt.msg_up, placer.dt.msg_down)
+    t = time.time()
+    merged = pl.merge_mp_candidates(tree, union, valid, starts, ends,
+                                    C=placer.C)
+    dt_merge = time.time() - t
+    n_tie = n_bad = n_q = n_q05 = 0
+    for r, p in enumerate(merged):
+        if p is None or not rows[r]:
+            n_bad += (p is None) != (not rows[r])
+            continue
+        tol = 1e-5 * abs(single[r, 5])
+        if abs(p.loglik - single[r, 5]) > tol:
+            n_bad += 1
+        if (p.c_node, p.a_node) != (int(single[r, 0]), int(single[r, 2])):
+            n_tie += 1
+            continue
+        n_q += not (q_close(p.q_place, single[r, 6])
+                    and q_close(p.q_taxon, single[r, 7]))
+        n_q05 += (abs(p.q_place - single[r, 6]) > Q_ATOL
+                  or abs(p.q_taxon - single[r, 7]) > Q_ATOL)
+    log(f"[parallel] scale, sharded_place_batch_tree on {n_shards} shards "
+        f"of one card ({card}): {B} reads in {dt:.3f} s ({B / dt:.1f} "
+        f"reads/s), host merge {dt_merge:.3f} s, launches {launches}, peak "
+        f"device memory {peak / 2**30:.2f} GiB; message bytes a shard "
+        f"{shard_bytes} of {whole} whole; vs the single-device placement: "
+        f"rows {int(rows.sum())}, c/a node near ties {n_tie}, loglik or "
+        f"placed-ness off {n_bad}, Q values off by > {Q_ATOL} {n_q05}, of "
+        f"them with error probabilities more than {Q_ULPS} f32 ulps of 1 "
+        f"apart {n_q}")
+    if n_bad or n_q or n_tie > 0.01 * rows.sum():
+        raise AssertionError("the tree-sharded merge disagrees with the "
+                             "single-device placement")
+    if launches != {"est": n_shards, "sep_optimize": n_shards}:
+        raise AssertionError(f"sharded_place_batch_tree launches "
+                             f"{launches}")
+
+
+def q_close(a: float, b: float) -> bool:
+    """Two Q values (-10 log10(1 - posterior)) within Q_ATOL, or whose
+    error probabilities 1 - posterior are within Q_ULPS f32 ulps of 1:
+    the posterior is an f32 near 1, so at Q ~ 50 (1 - post ~ 1e-5) one
+    ulp of 1 (1.2e-7) moves Q by ~0.05, and the host merge and the card
+    sum the weights in different orders."""
+    return (abs(a - b) <= Q_ATOL
+            or abs(10 ** (-a / 10) - 10 ** (-b / 10)) <= Q_ULPS * 2 ** -23)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_processes(fx, fa, d, plain):
+    """assign --num-processes 2 as two processes on the one card (gloo),
+    from a build directory whose libraries were just removed: both
+    processes build at once, one compiles while the other waits.  The
+    data rows must equal the one-process run's byte for byte."""
+    from hmmufotu_tpu_torch import _cuda
+    for name in _cuda.KERNEL_SOURCES:
+        path = _cuda._lib_path(name)
+        if os.path.exists(path):
+            os.remove(path)
+    out, aln = os.path.join(d, "multi.tsv"), os.path.join(d, "aln.fa")
+    port = free_port()
+    argv = [fx, fa, "-s", "1", "-b", str(N_FIXTURE_READS // 2), "-o", out,
+            "-a", aln, "--coordinator", f"localhost:{port}",
+            "--num-processes", "2"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; from hmmufotu_tpu_torch.cli.assign import main; "
+         f"sys.exit(main({argv + ['--process-id', str(pid)]!r}))"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in (0, 1)]
+    try:
+        res = [p.communicate(timeout=600) + (p.returncode,) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dt = time.time() - t
+    for pid, (_, err, rc) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"process {pid} failed ({rc}):\n"
+                                 f"{err[-3000:]}")
+    rows = read_rows(out)
+    files = [os.path.exists(f"{aln}.p{pid}") for pid in (0, 1)]
+    built = all(os.path.exists(_cuda._lib_path(n))
+                for n in _cuda.KERNEL_SOURCES)
+    log(f"[parallel] assign --num-processes 2 on one card: {len(rows)} "
+        f"rows in {dt:.1f} s (two processes, each importing torch, "
+        f"loading the DB and both building the kernels from an empty "
+        f"build directory); rows byte-equal to the one-process run: "
+        f"{rows == plain}; --align-out .p0/.p1 present {files}; "
+        f"libraries rebuilt {built}")
+    if rows != plain or not all(files) or not built:
+        raise AssertionError("the two-process run differs from one "
+                             "process")
+
+
+def parallel_phase(fx, fx_reads, sdb, s_reads):
+    d = os.path.join(WORK, "parallel")
+    os.makedirs(d, exist_ok=True)
+    fa = write_fasta(os.path.join(d, "reads.fasta"), fx_reads)
+    t = time.time()
+    plain = parallel_cli(fx, fa, d)
+    parallel_scale(sdb, s_reads[:BATCH])
+    parallel_processes(fx, fa, d, plain)
+    log(f"[parallel] phase took {time.time() - t:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1365,6 +1615,9 @@ def main() -> int:
         f"(messages stored f32): {json.dumps(stats)}")
     if not ok:
         raise AssertionError("torch evaluate engine disagrees at scale")
+
+    # ---- 11. the parallel layer -----------------------------------------
+    parallel_phase(fx, fx_reads, sdb, s_reads)
 
     # ---- result ----------------------------------------------------------
     # launches and path_total_ms are those of the path that runs the

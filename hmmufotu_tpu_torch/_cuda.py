@@ -6,11 +6,17 @@ interface (``extern "C"`` functions taking raw pointers and the CUDA
 stream) under the gitignored ``_build/`` directory at first use, and is
 loaded with ``ctypes``.  Nothing here runs at import time: the CPU tests
 import every module on a host without ``nvcc`` or a card.
+
+Several processes may build at once (``assign --num-processes``): a
+lock file in ``_build/`` lets one process build while the others wait,
+and each library is compiled under a temporary name and renamed onto
+its final path, so a process only ever loads a whole library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -98,26 +104,38 @@ def _stale(name: str) -> bool:
             or os.path.getmtime(so) < os.path.getmtime(src))
 
 
-def _nvcc_cmd(name: str) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", _lib_path(name),
+def _nvcc_cmd(name: str, out: str) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", out,
             os.path.join(CSRC, f"{name}.cu")]
 
 
 def build_all(names=KERNEL_SOURCES) -> str:
     """Compile every stale kernel source, one nvcc process per source,
-    all started together.  Returns the compilers' output."""
+    all started together.  Returns the compilers' output.
+
+    The build holds an exclusive lock on ``_build/.lock`` across
+    processes; a process that waited for it finds the libraries another
+    built fresh and builds nothing."""
     with _build_lock:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        todo = [n for n in names if _stale(n)]
-        procs = [(n, subprocess.Popen(_nvcc_cmd(n), stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
-                 for n in todo]
-        errors, logs = [], []
-        for n, p in procs:
-            out, _ = p.communicate()
-            logs.append(f"csrc/{n}.cu:\n{out}")
-            if p.returncode != 0:
-                errors.append(f"nvcc failed for csrc/{n}.cu:\n{out}")
+        with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)     # released on close
+            todo = [n for n in names if _stale(n)]
+            tmp = {n: f"{_lib_path(n)}.{os.getpid()}.tmp" for n in todo}
+            procs = [(n, subprocess.Popen(
+                _nvcc_cmd(n, tmp[n]), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)) for n in todo]
+            errors, logs = [], []
+            for n, p in procs:
+                out, _ = p.communicate()
+                logs.append(f"csrc/{n}.cu:\n{out}")
+                if p.returncode != 0:
+                    errors.append(f"nvcc failed for csrc/{n}.cu:\n{out}")
+                else:
+                    os.replace(tmp[n], _lib_path(n))
+            for path in tmp.values():
+                if os.path.exists(path):
+                    os.remove(path)
         if errors:
             raise RuntimeError("\n".join(errors))
         return "\n".join(logs)
@@ -135,14 +153,17 @@ def load_library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def check_rc(rc: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a C launcher."""
+def launch(what: str, fn, on: torch.Tensor, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` of a kernel whose tensors
+    lie on the card of ``on``: under that card's device guard, so the
+    launcher's device queries and its launch go to that card, and on that
+    card's current stream, the one torch queues its own ops on these
+    tensors to.  Raises on a non-zero cudaError_t."""
+    dev = on.device
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
-
-
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def require(t: torch.Tensor, dtype, ndim: int, name: str) -> None:

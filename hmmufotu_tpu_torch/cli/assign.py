@@ -6,14 +6,16 @@ them with the device SEP kernels, and writes the TSV with the
 reference's column layout (hmmufotu.cpp:590-594).  Single-end reads
 without chimera checking stream through pipeline.assign_stream;
 paired-end mates, chimera checking and --align-only run the batch loop
-of the reference package.  The parser is the reference package's; the
-mesh and multi-process flags need a parallel layer this package does
-not have yet and are refused with an error.
+of the reference package.  --mesh places each batch with its reads
+split over the local devices, --mesh-tree with the tree's message
+tensors split over them; --num-processes runs one process per shard of
+the reads, whose rows process 0 gathers and writes (parallel/).
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import logging
 import math
 import os
@@ -141,19 +143,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def unported_flag(args) -> str | None:
-    """The first mesh or multi-process flag given, or None: this port
-    has no parallel layer yet and refuses them."""
-    for flag, given in (
-            ("--mesh", args.mesh), ("--mesh-tree", args.mesh_tree),
-            ("--num-processes", args.num_processes > 1),
-            ("--process-id", args.process_id is not None),
-            ("--coordinator", args.coordinator != DEFAULT_COORDINATOR)):
-        if given:
-            return flag
-    return None
-
-
 def aln_tsv(aln: HmmAlignment) -> str:
     return (f"{aln.seq_start}\t{aln.seq_end}\t{aln.hmm_start}\t"
             f"{aln.hmm_end}\t{aln.cs_start}\t{aln.cs_end}\t"
@@ -253,10 +242,37 @@ def main(argv=None, device="cuda") -> int:
     argv = argv if argv is not None else sys.argv[1:]
     args = build_parser().parse_args(argv)
     setup_logging(args.verbose + 1)
-    flag = unported_flag(args)
-    if flag:
-        log.error("%s is not supported by this port yet", flag)
-        return 2
+    multihost = args.num_processes > 1
+    if multihost:
+        if args.process_id is None:
+            log.error("--num-processes requires --process-id")
+            return 1
+        if not 0 <= args.process_id < args.num_processes:
+            log.error("--process-id must be in [0, %d)",
+                      args.num_processes)
+            return 1
+        if args.resume:
+            log.error("--resume is not supported with --num-processes")
+            return 1
+        if args.seed is not None:
+            # each process would draw the same rng over only its shard,
+            # and the rows would differ from the single-process run's
+            log.error("-S/--seed is not supported with --num-processes;"
+                      " the default (deterministic first-occurrence "
+                      "seed pick) is already reproducible")
+            return 1
+        from ..parallel.distributed import init_distributed
+        if init_distributed(args.coordinator, args.num_processes,
+                            args.process_id) != args.num_processes:
+            # alone, process 0 would write only its own shard of the rows
+            # and the others none (the reference CLI carries on so)
+            log.error("could not join the %d-process group at %s",
+                      args.num_processes, args.coordinator)
+            return 1
+        for attr in ("align_out", "chimera_out"):
+            if getattr(args, attr):
+                setattr(args, attr,
+                        getattr(args, attr) + f".p{args.process_id}")
     dev = resolve_device(device)
     # without -S the FM-index occurrence choice is deterministic; -S
     # opts into reference-style random occurrence selection
@@ -283,6 +299,22 @@ def main(argv=None, device="cuda") -> int:
     if paired and len(rev_reads) != len(fwd_reads):
         log.error("Unmatched number of forward/reverse reads")
         return 1
+
+    mesh = None
+    if args.mesh and args.mesh_tree:
+        log.error("--mesh and --mesh-tree are mutually exclusive")
+        return 1
+    if args.resident_window and (args.mesh or args.mesh_tree):
+        log.error("--resident-window is the single-chip capacity "
+                  "mode; use --mesh-tree to shard full-length "
+                  "messages over a mesh instead")
+        return 1
+    if (args.mesh or args.mesh_tree) and not args.align_only:
+        from ..parallel import make_mesh
+        mesh = make_mesh(local=multihost, device=dev.type)
+        log.info("Sharding %s over %d devices",
+                 "tree messages" if args.mesh_tree
+                 else "placement reads", mesh.size)
 
     strand = args.strand
     if strand == 0:
@@ -341,14 +373,29 @@ def main(argv=None, device="cuda") -> int:
         if paired:
             rev_reads = [rev_reads[t] for t in keep]
 
+    if multihost:
+        # contiguous shard of the reads (strand detection above ran on
+        # the whole list, so every process made the same choice)
+        from ..parallel.distributed import host_bounds
+        lo_h, hi_h = host_bounds(len(fwd_reads), args.process_id,
+                                 args.num_processes)
+        log.info("multihost: process %d/%d assigned reads [%d, %d)",
+                 args.process_id, args.num_processes, lo_h, hi_h)
+        fwd_reads = fwd_reads[lo_h:hi_h]
+        if paired:
+            rev_reads = rev_reads[lo_h:hi_h]
+
     chim_cols = ("\t" + CHIMERA_TSV_HEADER + "\t") if args.chimera \
         else "\t"
     header = ("id\tdescription\t" + ALN_TSV_HEADER + chim_cols
               + PLACEMENT_TSV_HEADER + "\n")
-    out = sys.stdout if args.out == "-" else open(args.out, mode_out)
+    if multihost:
+        out = io.StringIO()        # rows gathered to process 0 at the end
+    else:
+        out = sys.stdout if args.out == "-" else open(args.out, mode_out)
     chi_out = aln_out = None
     try:
-        if mode_out == "w":
+        if mode_out == "w" and (not multihost or args.process_id == 0):
             out.write(prog_header([PROG_NAME] + list(argv)))
             out.write(header)
         if args.chimera_out:
@@ -357,21 +404,41 @@ def main(argv=None, device="cuda") -> int:
             chi_out.write(header)
         if args.align_out:
             aln_out = SeqWriter(open(args.align_out, "w"))
-        if not paired and not args.chimera and not args.align_only:
+        if not paired and not args.chimera and not args.align_only \
+                and mesh is None:
             n_assigned = stream_single(args, aligner, csfm, tree, placer,
                                        fwd_reads, mode, rng, out, aln_out)
         else:
             n_assigned = batch_loop(args, aligner, csfm, tree, placer,
                                     fwd_reads, rev_reads, mode, rng, out,
-                                    chi_out, aln_out)
+                                    chi_out, aln_out, mesh)
         log.info("Assigned %d of %d reads", n_assigned, len(fwd_reads))
     finally:
         for f in (chi_out, aln_out):
             if f:
                 f.close()
-        if out is not sys.stdout:
+        if out is not sys.stdout and not multihost:
             out.close()
+    if multihost:
+        write_gathered(args, out.getvalue(), mode_out)
     return 0
+
+
+def write_gathered(args, text: str, mode_out: str) -> None:
+    """Gather every process's rows to process 0, in process order (the
+    order of the reads), which writes them: data rows byte-equal to a
+    single-process run's.  Every process calls this."""
+    from ..parallel.distributed import gather_host_text
+    parts = gather_host_text(text)
+    if args.process_id != 0:
+        return
+    f = sys.stdout if args.out == "-" else open(args.out, mode_out)
+    try:
+        for part in parts:
+            f.write(part)
+    finally:
+        if f is not sys.stdout:
+            f.close()
 
 
 def stream_single(args, aligner, csfm, tree, placer, fwd_reads, mode, rng,
@@ -401,12 +468,13 @@ def stream_single(args, aligner, csfm, tree, placer, fwd_reads, mode, rng,
 
 
 def batch_loop(args, aligner, csfm, tree, placer, fwd_reads, rev_reads,
-               mode, rng, out, chi_out, aln_out) -> int:
-    """Paired-end mates, chimera checking or --align-only, one batch at a
-    time (reference package's loop, hmmufotu_tpu/cli/assign.py:450-549).
-    The -S rng is consumed by the forward reads' alignment, then by the
-    reverse-complemented mates'.  Returns the number of reads
-    assigned."""
+               mode, rng, out, chi_out, aln_out, mesh=None) -> int:
+    """Paired-end mates, chimera checking, --align-only or a mesh, one
+    batch at a time (reference package's loop,
+    hmmufotu_tpu/cli/assign.py:450-549); with a mesh each batch is placed
+    over it (--mesh-tree: tree-sharded).  The -S rng is consumed by the
+    forward reads' alignment, then by the reverse-complemented mates'.
+    Returns the number of reads assigned."""
     from ..alphabet import DNA
     paired = bool(rev_reads)
     n_assigned = 0
@@ -441,9 +509,15 @@ def batch_loop(args, aligner, csfm, tree, placer, fwd_reads, rev_reads,
         if not args.align_only and not args.chimera:
             place_alns = [HmmAlignment() if chim_flags[t] else aln
                           for t, aln in enumerate(alns)]
-            best_batch = pl.assign_batch_device(
-                tree, placer, place_alns, args.max_diff, args.max_height,
-                args.err, args.prior, args.ml_only)
+            if args.mesh_tree:
+                best_batch = pl.assign_batch_device_tree(
+                    tree, placer, place_alns, mesh, args.max_diff,
+                    args.max_height, args.err, args.prior, args.ml_only)
+            else:
+                best_batch = pl.assign_batch_device(
+                    tree, placer, place_alns, args.max_diff,
+                    args.max_height, args.err, args.prior, args.ml_only,
+                    mesh=mesh)
 
         for t, (read, aln) in enumerate(zip(batch, alns)):
             is_chimera = chim_flags[t]

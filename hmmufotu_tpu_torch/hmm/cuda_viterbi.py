@@ -348,12 +348,12 @@ def viterbi_traced_cuda(tc, em, scal, codes, meta, jb, n_rows: int,
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
-    rc = fn(tc.data_ptr(), em.data_ptr(), scal.data_ptr(),
-            codes.data_ptr(), meta.data_ptr(), jb.data_ptr(),
-            comb.data_ptr(), scratch.data_ptr(), B, n_rows, K, KPF, KP,
-            max_steps, TPS, n_regions, dchain, lpt, threads,
-            int(in_smem), _cuda.stream_ptr())
-    _cuda.check_rc(rc, "viterbi_traced")
+    _cuda.launch("viterbi_traced", fn, codes,
+                 tc.data_ptr(), em.data_ptr(), scal.data_ptr(),
+                 codes.data_ptr(), meta.data_ptr(), jb.data_ptr(),
+                 comb.data_ptr(), scratch.data_ptr(), B, n_rows, K, KPF, KP,
+                 max_steps, TPS, n_regions, dchain, lpt, threads,
+                 int(in_smem))
     if B:
         viterbi_traced_cuda.launches.add()
     return comb
@@ -437,11 +437,10 @@ def viterbi_planes_cuda(tc, em, scal, codes, meta, n_rows: int, K: int):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
-    rc = fn(tc.data_ptr(), em.data_ptr(), scal.data_ptr(),
-            codes.data_ptr(), meta.data_ptr(), sb.data_ptr(),
-            packed.data_ptr(), B, n_rows, K, KPF, lpt, threads,
-            _cuda.stream_ptr())
-    _cuda.check_rc(rc, "viterbi_planes")
+    _cuda.launch("viterbi_planes", fn, codes,
+                 tc.data_ptr(), em.data_ptr(), scal.data_ptr(),
+                 codes.data_ptr(), meta.data_ptr(), sb.data_ptr(),
+                 packed.data_ptr(), B, n_rows, K, KPF, lpt, threads)
     if B:
         viterbi_planes_cuda.launches.add()
     sb_f = sb.view(torch.float32)

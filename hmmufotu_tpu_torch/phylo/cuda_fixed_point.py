@@ -104,10 +104,10 @@ def fixed_point_cuda(eA, eB, n, p_init, skip):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p]
-    rc = fn(eA.data_ptr(), eB.data_ptr(), nf.data_ptr(), p0.data_ptr(),
-            sk.data_ptr(), lanes.data_ptr(), ctrl.data_ptr(), out.data_ptr(),
-            M, W, _cuda.stream_ptr())
-    _cuda.check_rc(rc, "fixed_point")
+    _cuda.launch("fixed_point", fn, eA,
+                 eA.data_ptr(), eB.data_ptr(), nf.data_ptr(), p0.data_ptr(),
+                 sk.data_ptr(), lanes.data_ptr(), ctrl.data_ptr(),
+                 out.data_ptr(), M, W)
     if M:
         fixed_point_cuda.launches.add()
     return out

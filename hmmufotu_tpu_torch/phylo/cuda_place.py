@@ -341,11 +341,10 @@ def est_cuda(Up, Vp, Nr, maskr, wur0, wvr0, model_s, C: int):
     scal = torch.stack([wur0.reshape(-1), wvr0.reshape(-1)], dim=1) \
         .to(torch.float32).contiguous()
     out = torch.empty((M, 2), dtype=torch.float32, device=Up.device)
-    rc = _fn("hm_est", 7, 3)(
+    _cuda.launch(
+        "est", _fn("hm_est", 7, 3), Up,
         Up.data_ptr(), Vp.data_ptr(), Nr.data_ptr(), maskr.data_ptr(),
-        scal.data_ptr(), model_s.data_ptr(), out.data_ptr(), B, C, Wp,
-        _cuda.stream_ptr())
-    _cuda.check_rc(rc, "est")
+        scal.data_ptr(), model_s.data_ptr(), out.data_ptr(), B, C, Wp)
     if M:
         est_cuda.launches.add()
     return out[:, 0], out[:, 1]
@@ -389,12 +388,11 @@ def sep_cuda(Up, Vp, Np, maskp, w0, wur0, wnr0, live, model_s,
         raise ValueError("live must be [M] on the messages' device")
     lanes, ctrl = live_lane_list(live)
     out = torch.zeros((M, 8), dtype=torch.float32, device=Up.device)
-    rc = _fn("hm_sep", 9, 3)(
+    _cuda.launch(
+        "sep", _fn("hm_sep", 9, 3), Up,
         Up.data_ptr(), Vp.data_ptr(), Np.data_ptr(), maskp.data_ptr(),
         scal.data_ptr(), model_s.data_ptr(), lanes.data_ptr(),
-        ctrl.data_ptr(), out.data_ptr(), M, Wp, n_rates,
-        _cuda.stream_ptr())
-    _cuda.check_rc(rc, "sep")
+        ctrl.data_ptr(), out.data_ptr(), M, Wp, n_rates)
     if M:
         sep_cuda.launches.add()
     return tuple(out[:, q] for q in range(6))

@@ -67,10 +67,6 @@ class DeviceTree(NamedTuple):
                                       device=dev)
         rates = np.ones(1) if tree.dg is None \
             else np.asarray(tree.dg.rates)
-        taxa: dict[str, int] = {}
-        anno_id = np.empty(tree.num_nodes, dtype=np.int64)
-        for u, a in enumerate(tree.anno):
-            anno_id[u] = taxa.setdefault(a, len(taxa))
         s0 = 0
         seq1h = nvalid = None
         if site_window is None:
@@ -95,9 +91,17 @@ class DeviceTree(NamedTuple):
             parent=torch.as_tensor(np.asarray(tree.parent, np.int64),
                                    device=dev),
             anno_dist=f(tree.anno_dist),
-            anno_id=torch.as_tensor(anno_id, device=dev),
+            anno_id=torch.as_tensor(anno_ids(tree), device=dev),
             pi=f(tree.model.pi), log_pi=f(np.log(tree.model.pi)),
             rates=f(rates), msg_s0=int(s0), seq1h=seq1h, nvalid=nvalid)
+
+
+def anno_ids(tree: PTUnrooted) -> np.ndarray:
+    """[N] int64 dense id of each node's taxon string, in first-seen node
+    order."""
+    taxa: dict[str, int] = {}
+    return np.array([taxa.setdefault(a, len(taxa)) for a in tree.anno],
+                    dtype=np.int64)
 
 
 def _dot_scaled(P: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -236,8 +240,8 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
                        ml_only: bool = False, opt_k: int | None = None,
                        s0: int = 0, Ws: int | None = None,
                        ref_rank: bool = False, sep_kernel: bool = True,
-                       fp_kernel: bool = True,
-                       est_kernel: bool = True) -> dict:
+                       fp_kernel: bool = True, est_kernel: bool = True,
+                       node_lo: int | None = None) -> dict:
     """Full SEP placement of a read batch.
 
     seq_win: [B, W] int8 aligned digital reads, pre-sliced at the
@@ -247,6 +251,12 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
     (s0, Ws): the batch's union site window (DevicePlacer.union_window).
     sep_kernel, fp_kernel, est_kernel: which kernels run (see
     DevicePlacer); the defaults are the fused estimate + optimize path.
+    node_lo: first global node id whose messages this call holds, for
+        tree-sharded placement (parallel.sharded_place_batch_tree):
+        dt.msg_up/msg_down are then a node slice [Nl, 4, Lw] and only
+        nodes [node_lo, node_lo + Nl) are candidates; everything else
+        in dt is whole and indexed by global ids.  The shards' grids
+        merge on the host (pipeline.merge_mp_candidates).
     Returns a dict of [B, C'] candidate tensors and the [B, 12] summary.
     """
     from .cuda_place import (est, model_scalars, pad_msgs, pad_reads,
@@ -284,6 +294,10 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
     dist = seed_pdist_bf16(seqs_w, q_valid, n1h8, nv8)     # [B, N]
 
     eligible = (dt.parent >= 0) & (dt.heights <= max_height)
+    n_msg = dt.msg_up.shape[0]
+    if node_lo is not None:
+        node = torch.arange(N, device=dev)
+        eligible = eligible & (node >= node_lo) & (node < node_lo + n_msg)
     dist_sort = torch.where(eligible[None, :] & ~torch.isnan(dist), dist,
                             torch.full_like(dist, INF))
     # C smallest, lower node id first on ties (jax.lax.top_k order)
@@ -299,8 +313,14 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
     cols = col[:, None] + torch.arange(W, device=dev)           # [B, W]
     k4 = torch.arange(4, device=dev)
 
+    # rows of the candidates in the message tensors; a candidate
+    # outside a node slice has an infinite distance (not cand_ok), and
+    # its clamped row is never used
+    row = cand if node_lo is None \
+        else torch.clamp(cand - node_lo, 0, n_msg - 1)
+
     def gather(arr):
-        return arr[cand[:, :, None, None], k4[None, None, :, None],
+        return arr[row[:, :, None, None], k4[None, None, :, None],
                    cols[:, None, None, :]].to(f32)              # [B,C,4,W]
 
     U = gather(dt.msg_up)
@@ -567,6 +587,8 @@ class DevicePlacer:
                                          device=self.device)
                          for t in eig_tensors(tree.model))
         self.n_rates = 1 if tree.dg is None else len(tree.dg.rates)
+        self._replicas: dict = {}       # on_device's copies by device
+        self._tree_shards: dict = {}    # parallel.tree_shards, by mesh
 
     @property
     def start_bound(self) -> int:
@@ -625,12 +647,64 @@ class DevicePlacer:
                     summary_only: bool = False) -> dict:
         """Place full-length [B, csLen] digital reads; clamps windows to
         the fixed width W.  Returns numpy arrays."""
+        out = self.dispatch_win(self.windows(seqs, starts), starts, ends,
+                                max_diff, max_height, max_error,
+                                height_prior, ml_only)
+        return _to_host(out, summary_only)
+
+    def windows(self, seqs, starts) -> np.ndarray:
+        """[B, W] placement windows of digital reads: full-length
+        [B, csLen] reads sliced at min(start, start_bound); [B, W]
+        windows as they are."""
         seqs = np.asarray(seqs, np.int8)
+        if seqs.shape[1] == self.W:
+            return seqs
         sc = np.minimum(np.asarray(starts, np.int64), self.start_bound)
-        wins = seqs[np.arange(len(seqs))[:, None],
+        return seqs[np.arange(len(seqs))[:, None],
                     sc[:, None] + np.arange(self.W)]
-        out = self.dispatch_win(wins, starts, ends, max_diff, max_height,
-                                max_error, height_prior, ml_only)
-        if summary_only:
-            return {"summary": out["summary"].cpu().numpy()}
-        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def place_batch_win(self, seq_wins: np.ndarray, starts: np.ndarray,
+                        ends: np.ndarray, max_diff: float = math.inf,
+                        max_height: float = math.inf,
+                        max_error: float = 20.0,
+                        height_prior: bool = False,
+                        ml_only: bool = False,
+                        summary_only: bool = False) -> dict:
+        """place_batch on pre-sliced [B, W] windows (each starting at
+        min(start, start_bound)), so only W bytes a read are uploaded.
+        Returns numpy arrays."""
+        out = self.dispatch_win(seq_wins, starts, ends, max_diff,
+                                max_height, max_error, height_prior,
+                                ml_only)
+        return _to_host(out, summary_only)
+
+    def on_device(self, device) -> tuple[DeviceTree, tuple]:
+        """(DeviceTree, eig tensors) on `device`: the placer's own where
+        it is the placer's device, else copies made once and kept."""
+        dev = _indexed(torch.device(device))
+        if dev == _indexed(self.device):
+            return self.dt, self.eig
+        if dev not in self._replicas:
+            self._replicas[dev] = (moved(self.dt, dev),
+                                   moved(self.eig, dev))
+        return self._replicas[dev]
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """`dev` with its card's index ("cuda" names the current card)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def moved(tensors, device):
+    """A tuple or NamedTuple of tensors (other fields kept) on `device`."""
+    out = [x.to(device) if torch.is_tensor(x) else x for x in tensors]
+    return type(tensors)(*out) if hasattr(tensors, "_fields") \
+        else tuple(out)
+
+
+def _to_host(out: dict, summary_only: bool) -> dict:
+    if summary_only:
+        return {"summary": out["summary"].cpu().numpy()}
+    return {k: v.cpu().numpy() for k, v in out.items()}

@@ -656,9 +656,19 @@ class PTUnrooted:
         # per level: children (sorted by parent), parents, each parent's
         # child slots into the level's children (the pad row n past a
         # parent's degree), each child's parent rank, and the parents
-        # that have a parent of their own (their rows, their ids)
+        # that have a parent of their own (their rows, their ids).
+        #
+        # Block size: the device bytes a block holds at its peak, counted
+        # in f32 rows of 4 states (16 bytes) a site: the up and down
+        # messages of every node, and one bound of every moment of a
+        # level (conv, child_sums, the parents' and the children's
+        # collapse, the down sweep's sums; each works in place where it
+        # can).  The rest does not grow with the block: P, the index
+        # tensors and the largest level's gathered P rows.
         plans = [None] * (maxd + 1)
-        rows_max = 1
+        rows_max = 5 * len(seq_leaves) // 2 + 1     # leaf rows and masks
+        fixed = N * K * 64
+        p_rows = 0
         for d in range(1, maxd + 1):
             ch, starts, pars = lvl[d]
             n, npar = len(ch), len(pars)
@@ -666,13 +676,25 @@ class PTUnrooted:
             j = np.arange(int(deg.max()))[None, :]
             slot = np.where(j < deg[:, None], starts[:, None] + j, n)
             has_pp = self.parent[pars] >= 0
+            npp = int(has_pp.sum())
             plans[d] = (index(ch), index(pars), index(slot),
                         index(np.repeat(np.arange(npar), deg)),
                         index(np.nonzero(has_pp)[0]), index(pars[has_pp]))
-            # f32 rows of 4 x K a site: convolutions, the padded gather,
-            # parent totals and the down sweep's differences
-            rows_max = max(rows_max, 3 * n + npar * (slot.shape[1] + 1))
-        B = max(32, int(budget_bytes // ((2 * N + rows_max * K) * 16)))
+            # child_sums' moment bounds the others: the convolutions,
+            # their padded copy, the gather of every parent's slots and
+            # its sums ([*, K, 4] rows), beside a conv's or a collapse's
+            # input, max, scale and exp or mean ([*, 4] rows)
+            rows_max = max(rows_max,
+                           (2 * n + 1 + npar * (slot.shape[1] + 1)) * K
+                           + 3 * (n + npp))
+            fixed += 8 * (3 * n + npar * (slot.shape[1] + 1) + 2 * npp)
+            p_rows = max(p_rows, n + npp)
+        # a CUDA caching allocator may hand a tensor over 1 MiB a cached
+        # block up to 1 MiB larger than it asked for; about ten tensors
+        # of a block are alive at its peak
+        slack = min(budget_bytes // 8, 10 << 20)
+        B = max(32, int((budget_bytes - slack - fixed - p_rows * K * 64)
+                        // ((2 * N + rows_max) * 16)))
         B = min(B, L)
 
         def conv(Pn, V):
@@ -680,17 +702,21 @@ class PTUnrooted:
             # per-column max scaling (dot_product_scaled)
             m = V.amax(1, keepdim=True)
             scale = torch.where(torch.isfinite(m), m, 0.0)
-            E = torch.exp(V - scale)
-            return torch.log(torch.einsum("nkij,njb->nkib", Pn, E)) \
-                + scale[:, None]
+            del m
+            E = (V - scale).exp_()
+            out = torch.einsum("nkij,njb->nkib", Pn, E)
+            del E
+            return out.log_().add_(scale[:, None])
 
         def collapse(acc):
-            # [m,K,4,B] -> [m,4,B] (row_mean_exp_scaled over rates)
+            # [m,K,4,B] -> [m,4,B] (row_mean_exp_scaled over rates);
+            # overwrites acc
             if K == 1:
                 return acc[:, 0]
             m = acc.amax(1, keepdim=True)
             sc = torch.where(torch.isfinite(m), m, 0.0)
-            return torch.log(torch.exp(acc - sc).mean(1)) + sc[:, 0]
+            del m
+            return acc.sub_(sc).exp_().mean(1).log_().add_(sc[:, 0])
 
         def child_sums(ch, slot, src):
             # [npar,K,4,B]: each parent's sum of its child convolutions
@@ -739,8 +765,13 @@ class PTUnrooted:
                 if len(pp):
                     tot[pp_rows] += conv(P[pp], dn[pp])
                 # children: collapse(tot[parent] - conv(child))
-                dn[ch] = collapse(tot[prank] - c)
+                diff = tot[prank].sub_(c)
+                del c, tot
+                dn[ch] = collapse(diff)
+                del diff
             self.msg_down[:, :, s0:s1] = dn.cpu().numpy()
+            # the next block's buffers must not meet these
+            del up, dn
 
     def node_loglik(self, u: int) -> np.ndarray:
         """[4, L] in-message at u combining ALL its neighbors — equals

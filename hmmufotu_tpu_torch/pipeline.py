@@ -445,14 +445,33 @@ def assign_batch_device(tree: PTUnrooted, placer, alns,
                         max_height: float = math.inf,
                         max_error: float = DEFAULT_MAX_PLACE_ERROR,
                         prior_type: str = "uniform",
-                        ml_only: bool = False):
+                        ml_only: bool = False, mesh=None):
     """Batched SEP placement of aligned reads through the device placer
     (phylo.placement.DevicePlacer); returns the best PTPlacement per
     read (None for invalid alignments).  Only the packed [B, 12]
-    summary is downloaded."""
-    return collect_place_batch(dispatch_place_batch(
-        tree, placer, alns, max_diff, max_height, max_error, prior_type,
-        ml_only))
+    summary is downloaded.
+
+    mesh (parallel.Mesh): place with reads split over its shards
+    (parallel.sharded_place_batch), the batch padded to a multiple of
+    the mesh size."""
+    if mesh is None:
+        return collect_place_batch(dispatch_place_batch(
+            tree, placer, alns, max_diff, max_height, max_error,
+            prior_type, ml_only))
+    from .parallel import sharded_place_batch
+    B = len(alns)
+    seqs, starts, ends, valid = _aln_windows(tree, placer, alns)
+    W = placer.W
+    Bp = -(-B // mesh.size) * mesh.size
+    if Bp != B:
+        seqs = np.concatenate([seqs, np.full((Bp - B, W), -2, np.int8)])
+        starts = np.concatenate([starts, np.zeros(Bp - B, np.int32)])
+        ends = np.concatenate([ends, np.zeros(Bp - B, np.int32)])
+    ends = np.minimum(ends, starts + W - 1)
+    s = sharded_place_batch(mesh, placer, seqs, starts, ends, max_diff,
+                            max_height, max_error, prior_type == "height",
+                            ml_only)[:B]
+    return _collect_placements(s, valid, starts, ends)
 
 
 def _aln_windows(tree: PTUnrooted, placer, alns):
@@ -596,3 +615,155 @@ def assign_stream(aligner: ViterbiAligner, csfm: CSFMIndex,
             prev = (alns, handle)
         if prev is not None:
             yield prev[0], collect_place_batch(prev[1])
+
+
+def merge_mp_candidates(tree: PTUnrooted, union: dict, valid, starts,
+                        ends, max_diff: float = math.inf,
+                        max_height: float = math.inf,
+                        max_error: float = DEFAULT_MAX_PLACE_ERROR,
+                        prior_type: str = "uniform",
+                        ml_only: bool = False, C: int = 50):
+    """Exact merge of tree-sharded placement grids, in host numpy.
+
+    union: dict of [B, C * n_shards] candidate grids from
+    parallel.sharded_place_batch_tree.  Rebuilds the single-device
+    selection from the union of the shards' candidates: the global top-C
+    by (p-dist, node id), the max_diff and max_error filters against the
+    global bests, the estimate-ranked lane order, then Q values over the
+    survivors.  Every per-candidate quantity (estimate, branch lengths,
+    loglik) is the same on any shard, so the merge gives the
+    single-device result."""
+    cand = union["cand"].astype(np.int64)
+    # the grids keep the devices' f32 end to end: the single-device path
+    # computes Q values in f32, and equal categories (1 - post flushing
+    # to 0 gives qPlace 250) need the same rounding
+    cd = np.asarray(union["c_dist"])
+    est = np.asarray(union["est_loglik"])
+    ll = np.asarray(union["loglik"])
+    ratio = union["ratio"]
+    wnr = union["wnr"]
+    w0 = union["w0"]
+    live = union["live"] > 0.5
+    B = cand.shape[0]
+    heights = tree.heights
+    parent = np.asarray(tree.parent)
+
+    # global top-C by (dist, node id): two stable argsorts
+    cd_s = np.where(np.isfinite(cd), cd, np.inf)
+    i2 = np.argsort(cand, axis=1, kind="stable")
+    i1 = np.argsort(np.take_along_axis(cd_s, i2, 1), axis=1,
+                    kind="stable")
+    order = np.take_along_axis(i2, i1, 1)[:, :C]        # [B, C]
+    cdo = np.take_along_axis(cd_s, order, 1)
+
+    def take(x):
+        return np.take_along_axis(np.asarray(x), order, 1)
+
+    ok = np.isfinite(cdo) & (cdo - cdo[:, :1] <= max_diff)
+    e = take(est)
+    with np.errstate(invalid="ignore"):
+        e_best = np.nanmax(np.where(ok & np.isfinite(e), e, np.nan),
+                           axis=1, keepdims=True)
+    ok1 = ok & np.isfinite(e) & (e_best - e <= max_error)
+    # lanes in estimate rank, as the single-device path orders them
+    # before optimizing (take_c in place_batch_device): argmax breaks
+    # ties of equal logliks by that order
+    sel = np.argsort(np.where(ok1, -e, np.inf), axis=1, kind="stable")
+    order = np.take_along_axis(order, sel, 1)
+    ok = np.take_along_axis(ok1, sel, 1) \
+        & take(live) & np.isfinite(take(ll))
+
+    lls = take(ll)
+    c_n = take(cand)
+    p_n = parent[c_n]
+    rat = take(ratio)
+    wn = take(wnr)
+    w_0 = take(w0)
+    wur = rat * w_0
+    height_f = heights[c_n] + wur
+    a_is_c = (rat <= 0.5) | (heights[p_n] > max_height)
+    a_n = np.where(a_is_c, c_n, p_n)
+    anno_place = np.where(a_is_c, wur + wn, (w_0 - wur) + wn)
+    if prior_type == "height":
+        # placement-only anno dist (PhyloTreeUnrooted.cpp:1166-1177)
+        lp = -(anno_place - wn + height_f)
+    else:
+        lp = np.zeros_like(lls)
+    pp = np.where(ok, lls + lp, -np.inf)                # [B, C]
+    m = pp.max(axis=1, keepdims=True)
+    m_f = np.where(np.isfinite(m), m, 0.0)
+    wgt = np.exp(pp - m_f)
+    tot = wgt.sum(axis=1, keepdims=True)
+    post = wgt / np.maximum(tot, np.finfo(pp.dtype).tiny)
+    with np.errstate(divide="ignore"):
+        q_place = np.minimum(
+            -10.0 * np.log10(np.maximum(1.0 - post, 0.0)), MAX_Q)
+    # per-taxon grouping via dense anno ids (same-taxon logsumexp, the
+    # ids of DeviceTree.anno_id, kept on the tree after the first batch),
+    # in row chunks that bound the [b, C, C] pair tensor
+    if getattr(tree, "_anno_ids", None) is None:
+        from .phylo.placement import anno_ids
+        tree._anno_ids = anno_ids(tree)
+    tax = tree._anno_ids[a_n]                           # [B, C]
+    lse_all = m_f[:, 0] + np.log(
+        np.maximum(tot[:, 0], np.finfo(pp.dtype).tiny))
+    q_taxon = np.empty_like(q_place)
+    CH = max(1, (1 << 24) // (C * C))
+    for b0 in range(0, B, CH):
+        b1 = min(b0 + CH, B)
+        same = tax[b0:b1, :, None] == tax[b0:b1, None, :]
+        pp_pair = np.where(same, pp[b0:b1, None, :], -np.inf)
+        mp = pp_pair.max(axis=2)
+        mp_f = np.where(np.isfinite(mp), mp, 0.0)
+        lse_t = mp_f + np.log(np.maximum(
+            np.exp(pp_pair - mp_f[:, :, None]).sum(axis=2),
+            np.finfo(pp.dtype).tiny))
+        # post_t <= 1; clamp masked lanes (whose lse_t is a tiny-floor
+        # artifact) so exp never overflows
+        post_t = np.exp(np.minimum(lse_t - lse_all[b0:b1, None], 0.0))
+        with np.errstate(divide="ignore"):
+            q_taxon[b0:b1] = np.minimum(
+                -10.0 * np.log10(np.maximum(1.0 - post_t, 0.0)), MAX_Q)
+    score = lls if ml_only else pp
+    best = np.argmax(np.where(ok, score, -np.inf), axis=1)  # [B]
+    any_ok = ok.any(axis=1)
+
+    def pick(x):
+        return np.take_along_axis(x, best[:, None], 1)[:, 0]
+
+    bc, bp, ba = pick(c_n), pick(p_n), pick(a_n)
+    bw0, brat, bwn = pick(w_0), pick(rat), pick(wn)
+    bll, bh = pick(lls), pick(height_f)
+    bqp, bqt = pick(q_place), pick(q_taxon)
+    results: list[PTPlacement | None] = []
+    for r in range(B):
+        if not valid[r] or not any_ok[r]:
+            results.append(None)
+            continue
+        results.append(PTPlacement(
+            int(starts[r]), int(ends[r]),
+            int(bc[r]), int(bp[r]), int(ba[r]),
+            float(bw0[r]), float(brat[r]), float(bwn[r]),
+            float(bll[r]), float(bh[r]),
+            float(bqp[r]), float(bqt[r])))
+    return results
+
+
+def assign_batch_device_tree(tree: PTUnrooted, placer, alns, mesh,
+                             max_diff: float = math.inf,
+                             max_height: float = math.inf,
+                             max_error: float = DEFAULT_MAX_PLACE_ERROR,
+                             prior_type: str = "uniform",
+                             ml_only: bool = False):
+    """Tree-sharded batched SEP placement: the message tensors split over
+    the mesh in node blocks, reads on every shard, the shards' candidate
+    grids merged exactly on the host.  Returns the best PTPlacement per
+    read, as assign_batch_device."""
+    from .parallel import sharded_place_batch_tree
+    seqs, starts, ends, valid = _aln_windows(tree, placer, alns)
+    union = sharded_place_batch_tree(
+        mesh, placer, seqs, starts, ends, max_diff, max_height,
+        max_error, prior_type == "height", ml_only)
+    return merge_mp_candidates(tree, union, valid, starts, ends,
+                               max_diff, max_height, max_error,
+                               prior_type, ml_only, placer.C)

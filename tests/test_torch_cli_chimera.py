@@ -76,19 +76,3 @@ def test_chimera_rows_match_reference(db_prefix, chimera_reads,  # noqa: F811
     if num_segment == 2:
         assert "chimera" in chi_ids
         assert not chi_ids & ({"clean"} | {f"s{i}" for i in range(N_CLEAN)})
-
-
-@pytest.mark.parametrize("flag", [["--mesh"], ["--mesh-tree"],
-                                  ["--num-processes", "2"],
-                                  ["--process-id", "0"],
-                                  ["--coordinator", "localhost:1234"]],
-                         ids=lambda f: f[0])
-def test_mesh_and_multiprocess_flags_refused(tmp_path, flag, caplog):
-    """The mesh and multi-process flags need a parallel layer the port
-    does not have: the CLI refuses them before it loads anything."""
-    from hmmufotu_tpu_torch.cli.assign import main
-    reads = tmp_path / "r.fasta"
-    reads.write_text(">r\nACGT\n")
-    assert main([str(tmp_path / "no_db"), str(reads)] + flag,
-                device="cpu") == 2
-    assert f"{flag[0]} is not supported" in caplog.text

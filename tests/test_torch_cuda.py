@@ -11,7 +11,10 @@ sites in block reductions and the plain versions in torch's order; K5's
 p within 1e-6 absolute + 1e-5 relative for the same reason (a lane may
 also stop one step apart inside BRANCH_EPS of its limit).  Beside the
 kernels: the torch evaluate engine on the card against the numpy f64
-engine, and paired-end assign on the card against the port's CPU run."""
+engine and its peak memory against its budget, paired-end assign on the
+card against the port's CPU run, and sharded placement on four shards of
+the card (and over every card of a host with several) against the
+single-device placement, each shard's kernels on its own card."""
 
 import os
 
@@ -404,3 +407,180 @@ def test_pe_assign_on_card_matches_cpu(db_prefix, tmp_path, insert):
         assert float(g[11]) == pytest.approx(float(c[11]), abs=BRANCH_ATOL)
         assert float(g[15]) == pytest.approx(float(c[15]), rel=LL_RTOL,
                                              abs=LL_ATOL)
+
+
+@pytest.mark.parametrize("K, budget", [(0, 12 << 20), (4, 48 << 20),
+                                       (4, 256 << 20)])
+def test_torch_evaluate_peak_within_budget_on_card(cuda, K, budget):
+    """The device memory the torch evaluate engine allocates beyond what
+    was held before it stays within budget_bytes (several site blocks a
+    sweep at the two smaller budgets)."""
+    from hmmufotu_tpu_torch.phylo import (DiscreteGammaModel, PTUnrooted,
+                                          create_model)
+    # the complete binary tree of scripts/scale_eval.py's synth_tree,
+    # 2,000 leaves x 600 columns, JC69 (K = 0) or GTR + 4 Gamma rates
+    rng = np.random.default_rng(11)
+    n, L = 2000, 600
+    N = 2 * n - 1
+    t = PTUnrooted()
+    t.cs_len, t.root = L, 0
+    t.parent = np.arange(-1, N - 1) // 2
+    t.parent[0] = -1
+    t.brlen = rng.uniform(0.01, 0.1, N)
+    t.brlen[0] = 0.0
+    t.names, t.anno = [f"n{i}" for i in range(N)], [""] * N
+    t.anno_dist, t.heights = np.zeros(N), np.zeros(N)
+    t.msa_id = np.full(N, -1, dtype=np.int64)
+    t.seqs = np.full((N, L), -128, dtype=np.int8)
+    t.has_seq = np.zeros(N, dtype=bool)
+    codes = rng.integers(0, 4, (n, L), dtype=np.int8)
+    codes[rng.random((n, L)) < 0.1] = -2
+    t.seqs[n - 1:] = codes
+    t.has_seq[n - 1:] = True
+    t.model = create_model("GTR" if K else "JC69")
+    if K:
+        t.dg = DiscreteGammaModel(0.6, K)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t.evaluate(dtype=np.float32, engine="torch", budget_bytes=budget,
+               device="cuda")
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= budget
+
+
+def record_launches(monkeypatch) -> list:
+    """[(kernel, card of its tensors, current card, on that card's current
+    stream)] of every kernel launch from here on."""
+    from hmmufotu_tpu_torch import _cuda
+    seen, real = [], _cuda.launch
+
+    def launch(what, fn, on, *args):
+        def recorded(*a):
+            seen.append((what, on.device.index, torch.cuda.current_device(),
+                         a[-1] == torch.cuda.current_stream(
+                             on.device).cuda_stream))
+            return fn(*a)
+        return real(what, recorded, on, *args)
+
+    monkeypatch.setattr(_cuda, "launch", launch)
+    return seen
+
+
+def test_sharded_placement_on_card(db, monkeypatch):
+    """Four shards on the one card: sharded_place_batch and the
+    tree-sharded placer with its host merge give the single-device
+    summary (tests/test_sharding.py's gates; Q values as q_close says),
+    K2 and K3 once a shard."""
+    from hmmufotu_tpu_torch.parallel.sharding import Mesh
+    check_sharded_placement(db, Mesh((torch.device("cuda", 0),) * 4),
+                            monkeypatch)
+
+
+def test_sharded_placement_across_cards(db, monkeypatch):
+    """The same over every card of the host (make_mesh()), each shard's
+    K2 and K3 launched on its own card and on that card's stream."""
+    from hmmufotu_tpu_torch.parallel import make_mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    check_sharded_placement(db, make_mesh(), monkeypatch)
+
+
+def check_sharded_placement(db, mesh, monkeypatch):
+    from hmmufotu_tpu_torch import pipeline as pl
+    from hmmufotu_tpu_torch.parallel import (sharded_place_batch,
+                                             sharded_place_batch_tree)
+    from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
+    tree = db.ptu
+    rng = np.random.default_rng(5)
+    leaves = [u for u in range(tree.num_nodes)
+              if tree.is_leaf(u) and tree.msa_id[u] >= 0]
+    B = 32
+    seqs = np.full((B, tree.cs_len), -2, np.int8)
+    starts, ends = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    for r in range(B):
+        codes = tree.seqs[int(rng.choice(leaves))]
+        pos = np.nonzero(codes >= 0)[0]
+        st = int(rng.integers(0, max(1, len(pos) - 210)))
+        w = pos[st:st + 200]
+        seqs[r, w] = codes[w]
+        starts[r], ends[r] = w[0], w[-1]
+    placer = DevicePlacer(tree, window=256, max_nseed=24, device="cuda")
+    single = placer.place_batch(seqs, starts, ends,
+                                summary_only=True)["summary"]
+    seen = record_launches(monkeypatch)
+    n0 = (cp.est_cuda.launches.n, cp.sep_cuda.launches.n)
+    sharded = sharded_place_batch(mesh, placer, seqs, starts, ends)
+    assert (sharded[:, 0] == single[:, 0]).all()
+    np.testing.assert_allclose(sharded[:, 5], single[:, 5], rtol=1e-5)
+    union = sharded_place_batch_tree(mesh, placer, seqs, starts, ends)
+    torch.cuda.synchronize()
+    n = mesh.size
+    assert (cp.est_cuda.launches.n - n0[0],
+            cp.sep_cuda.launches.n - n0[1]) == (2 * n, 2 * n)
+    cards = [d.index for d in mesh.devices]
+    for k in ("est", "sep"):
+        assert [s[1] for s in seen if s[0] == k] == cards * 2
+    assert all(card == cur and on_stream for _, card, cur, on_stream in seen)
+    merged = pl.merge_mp_candidates(tree, union, np.ones(B, bool), starts,
+                                    ends, C=24)
+
+    def q_close(a, b):
+        # Q = -10 log10(1 - post) of an f32 posterior near 1: the host
+        # merge and the card sum the weights in different orders, and one
+        # ulp of 1 (1.2e-7) moves Q by ~0.05 at Q ~ 50 and from 69 to the
+        # cap 250 where 1 - post rounds to 0; so Q values agree within
+        # 0.05 or their error probabilities within 4 ulps of 1
+        return abs(a - b) <= 0.05 \
+            or abs(10 ** (-a / 10) - 10 ** (-b / 10)) <= 4 * 2 ** -23
+
+    for r, p in enumerate(merged):
+        assert (p.c_node, p.a_node) == (int(single[r, 0]),
+                                        int(single[r, 2]))
+        np.testing.assert_allclose(p.loglik, single[r, 5], rtol=1e-5)
+        assert q_close(p.q_place, single[r, 6]), (r, p, single[r])
+        assert q_close(p.q_taxon, single[r, 7]), (r, p, single[r])
+
+
+@pytest.mark.parametrize("flag", ["--mesh", "--mesh-tree"])
+def test_assign_mesh_across_cards(db_prefix, tmp_path, monkeypatch, flag):
+    """assign with a mesh over every card of the host against the run
+    without a mesh: the same ids and alignments, and the same branch and
+    taxon with logliks within the placement tolerances on every row but
+    at most one near tie (a differing branch whose loglik agrees within
+    them); K2 and K3 launched on every card, each on that card's
+    stream."""
+    from hmmufotu_tpu_torch.cli.assign import main
+    from hmmufotu_tpu_torch.cli.sim import main as sim_main
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    reads = str(tmp_path / "reads.fa")
+    assert sim_main([db_prefix, reads, "-N", "48", "-S", "7",
+                     "-l", "150"]) == 0
+    rows, seen = {}, []
+    for tag, extra in (("plain", []), ("mesh", [flag])):
+        if extra:
+            seen = record_launches(monkeypatch)
+        out = tmp_path / f"{tag}.tsv"
+        assert main([db_prefix, reads, "-o", str(out), "-b", "16"]
+                    + extra) == 0
+        rows[tag] = [line.rstrip("\n").split("\t") for line in open(out)
+                     if not line.startswith("#")
+                     and not line.startswith("id\t")]
+    cards = set(range(torch.cuda.device_count()))
+    for k in ("est", "sep"):
+        assert {s[1] for s in seen if s[0] == k} == cards
+    assert all(card == cur and on_stream for _, card, cur, on_stream in seen)
+    got, want = rows["mesh"], rows["plain"]
+    assert [r[0] for r in got] == [r[0] for r in want] and len(got) == 48
+    near_ties = 0
+    for g, w in zip(got, want):
+        assert g[2:10] == w[2:10], g[0]
+        if w[10] == "-1":
+            assert g[10] == "-1", g[0]
+            continue
+        assert float(g[15]) == pytest.approx(float(w[15]), rel=LL_RTOL,
+                                             abs=LL_ATOL), g[0]
+        near_ties += (g[10], g[12], g[13]) != (w[10], w[12], w[13])
+    assert near_ties <= 1

@@ -144,3 +144,32 @@ def test_torch_engine_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         t.evaluate(engine="torch")
+
+
+def cpu_peak_bytes(fn) -> int:
+    """The most bytes that CPU tensors held at once while fn ran: the
+    profiler's allocations of each op and its frees, summed in time
+    order."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 profile_memory=True) as prof:
+        fn()
+    steps = sorted(
+        (e.time_range.start, e.cpu_memory_usage if e.name == "[memory]"
+         else e.self_cpu_memory_usage) for e in prof.events())
+    held = peak = 0
+    for _, n in steps:
+        held += n
+        peak = max(peak, held)
+    return peak
+
+
+@pytest.mark.parametrize("K, budget", [(0, 12 << 20), (4, 48 << 20)])
+def test_torch_engine_peak_within_budget(K, budget):
+    """The blocks the engine sizes from budget_bytes keep the tensors it
+    holds at once under the budget (here several blocks a sweep)."""
+    _, t = synth_trees(K, n_leaves=2000, length=600, seed=11)
+    peak = cpu_peak_bytes(lambda: t.evaluate(
+        dtype=np.float32, engine="torch", budget_bytes=budget,
+        device="cpu"))
+    assert budget // 2 < peak <= budget

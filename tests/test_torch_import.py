@@ -27,7 +27,10 @@ assert sys.modules["jax"] is None
 for name in ("hmm.viterbi", "hmm.cuda_viterbi", "phylo.placement",
              "phylo.cuda_place", "phylo.cuda_fixed_point", "otu",
              "otu.table", "cli.sim", "cli.sum", "cli.jplace", "cli.subset",
-             "cli.norm", "cli.merge"):
+             "cli.norm", "cli.merge", "parallel", "parallel.sharding",
+             "parallel.distributed", "cli.anneal", "cli.inspect",
+             "cli.train_dm", "cli.train_sm", "cli.train_hmm", "io",
+             "io.reference_format"):
     assert "hmmufotu_tpu_torch." + name in names, name
 print(len(names))
 """
