@@ -23,6 +23,8 @@ are the same recurrence.
 
 from __future__ import annotations
 
+import os
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -35,6 +37,24 @@ from .profile import (HmmAlignment, K_MIN_GAP_FRAC, ProfileHMM,
 
 INF = float("inf")
 PAD_STATE = 5                        # traceback pad state code
+# seconds of the aligner's stages by key, summed while HMMUFOTU_TIMING is
+# set (the reference package's TIMING): dp_dispatch, dp, scalars_dl, and
+# trace_dl + host_build (K1) or choices_dl + unpack + host_trace (K4)
+TIMING = {}
+
+
+def _tick(key, t0):
+    if os.environ.get("HMMUFOTU_TIMING"):
+        TIMING[key] = TIMING.get(key, 0.0) + (time.time() - t0)
+    return time.time()
+
+
+def _wait_if_timing(t: torch.Tensor):
+    """Wait for the device work behind t, only while the stage clocks run:
+    the download after it waits anyway, and the clocks need the wait to
+    part the DP ("dp") from the download ("scalars_dl")."""
+    if os.environ.get("HMMUFOTU_TIMING") and t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
 
 # region tuple layout: (j_lo, j_hi, i_lo, i_hi, entry_ok, diag, lo_d, hi_d)
 REGION_WIDTH = 8
@@ -494,6 +514,7 @@ class ViterbiAligner:
             n_rows = (n_rows + PACK_ROWS - 1) // PACK_ROWS * PACK_ROWS
         codes, lengths, regions = self._encode(seqs, vpaths_per_read,
                                                n_rows)
+        t = time.time()
         if not B:
             res = None
         elif self.traced:
@@ -501,6 +522,7 @@ class ViterbiAligner:
                                        lengths, regions, n_rows)
         else:
             res = self._run_dp(codes, lengths, regions, n_rows)
+        _tick("dp_dispatch", t)
         return (list(seqs), n_rows, codes, lengths, regions,
                 vpaths_per_read, res)
 
@@ -520,7 +542,11 @@ class ViterbiAligner:
         seqs, n_rows, codes, lengths, regions, vpaths_per_read, comb = \
             handle
         B = len(seqs)
+        t = time.time()
+        _wait_if_timing(comb)
+        t = _tick("dp", t)
         comb_h = comb.cpu().numpy()
+        _tick("scalars_dl", t)
         score_h = comb_h[:, 0].view(np.float32)
         # banded failures -> full DP rerun of those rows, merged on the
         # host (the rerun's comb may be wider: pad both to one layout)
@@ -541,10 +567,12 @@ class ViterbiAligner:
 
             comb_h = _padw(comb_h)
             comb_h[rows] = _padw(comb2_h)
+        t = time.time()
         sb_h = comb_h[:, :8].view(np.float32)
         score_h = sb_h[:, 0]
         emits = unpack_emits(comb_h[:, 8:])
         bounds = sb_h[:, 3:7].astype(np.int32)
+        t = _tick("trace_dl", t)
         alns: list[HmmAlignment] = []
         for r in range(B):
             if not np.isfinite(score_h[r]):
@@ -556,6 +584,7 @@ class ViterbiAligner:
             alns.append(build_global_align_path(
                 hmm, seqs[r], path, int(bounds[r, 0]), int(bounds[r, 1]),
                 int(bounds[r, 2]), int(bounds[r, 3]), float(score_h[r])))
+        _tick("host_build", t)
         return alns
 
     def _finalize_planes(self, handle) -> list[HmmAlignment]:
@@ -563,7 +592,11 @@ class ViterbiAligner:
         seqs, n_rows, codes, lengths, regions, vpaths_per_read, res = handle
         score, mi, mj, choices = res
         B = len(seqs)
+        t = time.time()
+        _wait_if_timing(score)
+        t = _tick("dp", t)
         score_h = score.cpu().numpy()
+        _tick("scalars_dl", t)
         # banded failures -> full DP rerun of those rows, written over
         # the first pass's rows on the device
         failed = _banded_failures(score_h, vpaths_per_read)
@@ -579,9 +612,8 @@ class ViterbiAligner:
             mj = mj.index_copy(0, rows_t, j2)
             choices = choices.index_copy_(1, rows_t, c2)
             score_h = score.cpu().numpy()
-        mi_h = mi.cpu().numpy()
-        mj_h = mj.cpu().numpy()
 
+        host_k4 = self.kernel == "cuda" and self.traceback_mode == "host"
         if self.traceback_mode == "device":
             # scan + device walk: ship [B, steps] state codes, not the
             # choice planes
@@ -598,13 +630,18 @@ class ViterbiAligner:
                     trace = "B" + trace
                 return (trace + "E", int(a_start[r]), int(a_end[r]),
                         int(a_from[r]), int(a_to[r]))
-        elif self.kernel == "cuda":
+        elif host_k4:
+            t = time.time()
             packed_h = choices.cpu().numpy()
+            t = _tick("choices_dl", t)
+            mi_h, mj_h = mi.cpu().numpy(), mj.cpu().numpy()
+            t = _tick("unpack", t)
 
             def walk(r):
                 return traceback_packed(packed_h, r, int(mi_h[r]),
                                         int(mj_h[r]), hmm.K)
         else:
+            mi_h, mj_h = mi.cpu().numpy(), mj.cpu().numpy()
             ch = unpack_choices(pack_choices(choices).cpu().numpy(),
                                 hmm.K + 1)
 
@@ -619,4 +656,6 @@ class ViterbiAligner:
                 continue
             alns.append(build_global_align(hmm, seqs[r], *walk(r),
                                            float(score_h[r])))
+        if host_k4:
+            _tick("host_trace", t)
         return alns

@@ -16,6 +16,7 @@ NCCL refuses, and the same code in the CPU tests.
 
 from __future__ import annotations
 
+import atexit
 import logging
 
 import numpy as np
@@ -42,10 +43,19 @@ def init_distributed(coordinator: str | None = None,
             world_size=num_processes, rank=process_id)
         log.info("distributed: process %d/%d", dist.get_rank(),
                  dist.get_world_size())
+        # a gloo group still alive when the interpreter finalizes can
+        # abort the process as it ends ("terminate called without an
+        # active exception"), after its work is done
+        atexit.register(_leave)
     except (RuntimeError, ValueError) as e:
         log.warning("torch.distributed init failed (%s); "
                     "continuing single-process", e)
     return _rank_world()[1]
+
+
+def _leave() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _rank_world() -> tuple[int, int]:

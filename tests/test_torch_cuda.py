@@ -92,36 +92,95 @@ def test_viterbi_kernel_matches_plain(db, unseeded):
         assert (a.align, a.cost) == (b.align, b.cost)
 
 
-# (band lanes, D-chain bound) of the row loop's special shapes: a band that
-# is not a multiple of the warp's 32 lanes, a band past one lane a thread,
-# and the chain cut below, at and past a warp's reach and unbounded
-ROW_SHAPES = [(200, 1 << 30), (384, 1), (384, 2), (384, 32), (384, 33),
-              (384, 1 << 30), (600, 33), (1408, 1 << 30)]
+WIDE_COLS = 6000       # the gg_97 shape's columns
 
 
-@pytest.mark.parametrize("KP,dchain", ROW_SHAPES)
-def test_viterbi_kernel_row_shapes(db, KP, dchain):
+@pytest.fixture(scope="module")
+def wide_profile(cuda):
+    """A synthetic profile of the gg_97 shape's 6,000 columns: 16 gapless
+    rows, each a random root with 5% substitutions; its NGCL-mode HMM
+    (K = 6,000, KPF = 6,016 lanes), CSFM index and rows."""
+    from hmmufotu_tpu_torch.hmm import NGCL, ProfileHMM
+    from hmmufotu_tpu_torch.index.csfm import CSFMIndex
+    from hmmufotu_tpu_torch.mathx.dirichlet import HmmPrior
+    from hmmufotu_tpu_torch.msa import MSA
+    rng = np.random.default_rng(11)
+    root = rng.integers(0, 4, WIDE_COLS)
+    rows = np.stack([np.where(rng.random(WIDE_COLS) < 0.05,
+                              rng.integers(0, 4, WIDE_COLS), root)
+                     for _ in range(16)])
+    chars = np.frombuffer(b"ACGT", np.uint8)[rows]
+    msa = MSA.from_arrays([f"s{i}" for i in range(len(rows))], chars,
+                          name="wide")
+    hmm = ProfileHMM.build(msa, 0.5, HmmPrior.load(
+        os.path.join(FIXTURES, "gg_97_otus.dm")))
+    hmm.set_sequence_mode(NGCL)
+    hmm.wing_retract()
+    assert hmm.K == WIDE_COLS
+    return hmm, CSFMIndex.build(msa), rows
+
+
+def wide_reads(rows, n, seed, length):
+    """Mutated (2%) windows of the wide profile's rows."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for _ in range(n):
+        row = rows[int(rng.integers(len(rows)))]
+        st = int(rng.integers(0, len(row) - length))
+        piece = row[st:st + length].copy()
+        mut = rng.random(length) < 0.02
+        piece[mut] = rng.integers(0, 4, int(mut.sum()))
+        reads.append("".join("ACGT"[c] for c in piece))
+    return reads
+
+
+# (band lanes, D-chain bound, profile) of the row loop's special shapes:
+# on the fixture's profile (K = 1,285), a band that is not a multiple of
+# the warp's 32 lanes, a band past one lane a thread, and the chain cut
+# below, at and past a warp's reach and unbounded; on the 6,000-column
+# profile, the 4-lane launches (1,537-2,048 lanes) and the full width of
+# 6,016 lanes (8 lanes a thread)
+ROW_SHAPES = [(200, 1 << 30, "fixture"), (384, 1, "fixture"),
+              (384, 2, "fixture"), (384, 32, "fixture"),
+              (384, 33, "fixture"), (384, 1 << 30, "fixture"),
+              (600, 33, "fixture"), (1408, 1 << 30, "fixture"),
+              (1600, 1 << 30, "wide"), (2048, 33, "wide"),
+              (6016, 1 << 30, "wide")]
+
+
+@pytest.mark.parametrize("KP,dchain,profile", ROW_SHAPES)
+def test_viterbi_kernel_row_shapes(request, KP, dchain, profile):
     """K1 bit-equal to its plain version at each shape, with a read of
     length 1, one that stops inside the batch and reads that fill every
-    row; K4 on the same reads."""
+    row; at the full width of the profile, K4 on the same reads."""
     from hmmufotu_tpu_torch import pipeline as pl
     from hmmufotu_tpu_torch.hmm import NGCL, ViterbiAligner
     from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
-    reads = simulate_reads(db.ptu, 12, seed=KP + min(dchain, 99), length=96)
-    vp = pl.batch_find_seed_vpaths(db.hmm, db.csfm, reads, mode=NGCL)
+    seed = KP + min(dchain, 99)
+    if profile == "fixture":
+        db = request.getfixturevalue("db")
+        hmm, csfm = db.hmm, db.csfm
+        reads = simulate_reads(db.ptu, 12, seed=seed, length=96)
+    else:
+        hmm, csfm, rows = request.getfixturevalue("wide_profile")
+        reads = wide_reads(rows, 12, seed, 96)
+    vp = pl.batch_find_seed_vpaths(hmm, csfm, reads, mode=NGCL)
     vp[5] = None                                    # one full-DP read
-    al = ViterbiAligner(db.hmm, device="cuda")
+    al = ViterbiAligner(hmm, device="cuda")
     n_rows = 96
     codes, lengths, regions = al._encode(reads, vp, n_rows)
     lengths[0], lengths[2] = 1, 37
-    K = db.hmm.K
+    K = hmm.K
     used = regions[:, :, 1] > 0
     jlo = np.where(used, np.maximum(regions[:, :, 0], 1), 1 << 30).min(1)
     jb = np.maximum(jlo - 1, 0).astype(np.int32)
-    if KP == 1408:
-        jb[:] = 0
     tc, em, scal = al.staged
+    full = KP == tc.shape[1]
+    if full:
+        jb[:] = 0
     assert KP <= tc.shape[1]
+    if profile == "wide":
+        assert cv._lanes_per_thread(KP)[0] == (8 if full else 4)
     _, max_steps, _ = cv.launch_shape(K, n_rows, KP)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
     meta = to(cv.make_meta(lengths, regions))
@@ -130,7 +189,7 @@ def test_viterbi_kernel_row_shapes(db, KP, dchain):
     got = cv.viterbi_traced_cuda(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, cv.viterbi_traced_plain(*args))
-    if KP == 1408:
+    if full:
         pargs = (tc, em, scal, to(codes), meta, n_rows, K)
         for a, b in zip(cv.viterbi_planes_cuda(*pargs),
                         cv.viterbi_planes_plain(*pargs)):
@@ -465,6 +524,51 @@ def record_launches(monkeypatch) -> list:
 
     monkeypatch.setattr(_cuda, "launch", launch)
     return seen
+
+
+@pytest.mark.parametrize("msg_dtype", ["f32", "bf16"])
+def test_resident_placer_on_card_matches_cpu(db, msg_dtype):
+    """The window-resident placer (site_window, f32 or bf16 message
+    storage) on the card against the same placer on the CPU, reads inside
+    the window: the same c/p/a nodes but for one near tie, logliks within
+    1e-4 relative + 0.5 (tests/test_pipeline.py), K2 and K3 launched."""
+    from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
+    tree = db.ptu
+    s0, Ws = 256, 768
+    rng = np.random.default_rng(13)
+    leaves = [u for u in range(tree.num_nodes)
+              if tree.is_leaf(u) and tree.msa_id[u] >= 0]
+    B = 32
+    seqs = np.full((B, tree.cs_len), -2, np.int8)
+    starts, ends = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    for r in range(B):
+        codes = tree.seqs[int(rng.choice(leaves))]
+        pos = np.nonzero(codes >= 0)[0]
+        pos = pos[(pos >= s0) & (pos < s0 + Ws)]
+        st = int(rng.integers(0, len(pos) - 200))
+        w = pos[st:st + 200]
+        seqs[r, w] = codes[w]
+        starts[r], ends[r] = w[0], w[-1]
+    dtype = torch.bfloat16 if msg_dtype == "bf16" else None
+    out = {}
+    n0 = (cp.est_cuda.launches.n, cp.sep_cuda.launches.n)
+    for dev in ("cuda", "cpu"):
+        placer = DevicePlacer(tree, window=256, max_nseed=24, device=dev,
+                              msg_dtype=dtype, site_window=(s0, Ws))
+        assert placer.dt.msg_up.shape[2] == Ws
+        assert placer.dt.msg_up.dtype == (dtype or torch.float32)
+        out[dev] = placer.place_batch(seqs, starts, ends,
+                                      summary_only=True)["summary"]
+    torch.cuda.synchronize()
+    assert (cp.est_cuda.launches.n - n0[0],
+            cp.sep_cuda.launches.n - n0[1]) == (1, 1)
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert (gpu[:, 11] > 0).all() and (cpu[:, 11] > 0).all()
+    np.testing.assert_allclose(gpu[:, 5], cpu[:, 5], rtol=LL_RTOL,
+                               atol=LL_ATOL)
+    differ = (gpu[:, :3] != cpu[:, :3]).any(1)
+    assert differ.sum() <= 1, np.nonzero(differ)[0]
 
 
 def test_sharded_placement_on_card(db, monkeypatch):

@@ -11,6 +11,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "hmmufotu_tpu_torch")
+# the port's gg_97-shape harnesses
+SCRIPTS = [os.path.join(REPO, "scripts", f"torch_scale_{n}.py")
+           for n in ("eval", "assign", "e2e")]
 
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -49,6 +52,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield from SCRIPTS
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
@@ -62,6 +66,50 @@ def test_no_jax_or_reference_import(path):
         assert mod.split(".")[0] != "jax", s
         assert mod != "hmmufotu_tpu" \
             and not mod.startswith("hmmufotu_tpu."), s
+
+
+LOAD_SCRIPTS = r"""
+import importlib.util, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["hmmufotu_tpu"] = None
+for path in sys.argv[1:]:
+    name = path.rsplit("/", 1)[1][:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    assert callable(mod.main), name
+ref = sorted(m for m in sys.modules
+             if m.startswith("hmmufotu_tpu.") or m.startswith("jax."))
+assert not ref, ref
+print(len(sys.argv) - 1)
+"""
+
+
+def test_scale_scripts_load_without_jax():
+    """The three harnesses load with jax and the reference package
+    blocked."""
+    out = subprocess.run([sys.executable, "-c", LOAD_SCRIPTS] + SCRIPTS,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "3"
+
+
+@pytest.mark.parametrize("path", SCRIPTS,
+                         ids=lambda p: os.path.basename(p))
+def test_scale_scripts_refuse_cuda_without_a_card(monkeypatch, path):
+    """Each harness runs on the card by default and raises without one."""
+    import importlib.util
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.syspath_prepend(os.path.dirname(path))
+    spec = importlib.util.spec_from_file_location(
+        "card_check_" + os.path.basename(path)[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        mod.main(["--leaves", "8", "--length", "600", "--reads", "4"]
+                 if "eval" not in path else ["--leaves", "8"])
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
