@@ -62,7 +62,14 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               bytes; assign --num-processes 2 as two processes on the card
               over gloo, starting from a build directory without the
               libraries (both processes build at once), rows byte-equal to
-              the one-process run.
+              the one-process run;
+ 12. cli      the build CLI writes an evolved DB of 2,048 leaves x 6,000
+              columns to files (torch evaluate engine), and the assign CLI
+              loads it on the card with its default placer (the whole
+              tree on the card) and with --resident-window 1024, each on
+              2,048 amplicon reads: stage seconds, file sizes, launches,
+              and the first 64 rows of each against a CPU run of the
+              assign CLI.
 
 Prints one `kernels` JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -98,6 +105,9 @@ N_MODE_READS = 64       # reads of the short scan / tensor-op-estimate runs
 N_PAIRS = 512           # read pairs of the paired-end phase
 N_WIDE_PAIRS = 64       # pairs with 600 bp inserts (wider than W = 512)
 N_CHIMERA_CLEAN = 64    # simulated reads beside the chimera
+CLI_LEAVES = 2048       # the [cli] phase's evolved DB: 4,095 nodes
+N_CLI_READS = 2048      # its amplicon reads, one assign batch
+N_CLI_CPU_READS = 64    # the first of them in the CPU run
 # the reference package's tolerances between its two evaluate engines
 # (tests/test_scale_eval.py): messages on finite entries, tree loglik
 EVAL_ATOL, EVAL_LL_RTOL = 0.05, 1e-5
@@ -150,25 +160,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def simulate_reads(tree, rng, n, length=READ_LEN, leaves=None):
-    """Mutated leaf windows (2% substitutions), as bench.py simulates;
-    from every leaf, or from the given ones."""
-    leaves = leaves or [u for u in range(tree.num_nodes)
-                        if tree.is_leaf(u) and tree.msa_id[u] >= 0]
-    reads = []
-    while len(reads) < n:
-        u = int(rng.choice(leaves))
-        pos = np.nonzero(tree.seqs[u] >= 0)[0]
-        if len(pos) < length + 10:
-            continue
-        st = int(rng.integers(0, len(pos) - length - 5))
-        piece = tree.seqs[u][pos[st:st + length]].copy()
-        mut = rng.random(len(piece)) < 0.02
-        piece[mut] = rng.integers(0, 4, int(mut.sum()))
-        reads.append("".join("ACGT"[c] for c in piece))
-    return reads
-
-
 # ---------------------------------------------------------------------------
 # databases
 # ---------------------------------------------------------------------------
@@ -185,84 +176,10 @@ def build_fixture_db(prefix: str) -> float:
     return time.time() - t
 
 
-def synth_inputs(d: str, n_leaves: int, n_cols: int, seed: int = 7):
-    """Write an MSA fasta, a Newick tree and a taxonomy file for a random
-    tree of n_leaves leaves whose sequences evolve down the tree under the
-    bundled GTR model with 4 Gamma rate classes (alpha 0.5).  Topology by
-    random bisection of the leaf set; branch lengths exponential; about a
-    fifth of the columns are gap-rich (insert columns of the profile)."""
-    from hmmufotu_tpu_torch.phylo import DiscreteGammaModel, load_model
-    rng = np.random.default_rng(seed)
-    os.makedirs(d, exist_ok=True)
-    # topology: node 0 is the root; a clade of n >= 2 leaves splits into
-    # two clades of uniform random size
-    parent, brlen, depth, path = [-1], [0.0], [0], [()]
-    leaf_nodes = []
-    stack = [(0, n_leaves)]
-    while stack:
-        u, n = stack.pop()
-        if n == 1:
-            leaf_nodes.append(u)
-            continue
-        k = int(rng.integers(1, n))
-        for j, m in enumerate((k, n - k)):
-            v = len(parent)
-            parent.append(u)
-            brlen.append(float(rng.exponential(0.06 if m == 1 else 0.03)))
-            depth.append(depth[u] + 1)
-            path.append(path[u] + (j,))
-            stack.append((v, m))
-    N = len(parent)
-    children = [[] for _ in range(N)]
-    for v in range(1, N):
-        children[parent[v]].append(v)
-    # sequences: root from pi, then each edge by P(t * site rate)
-    model = load_model(os.path.join(REPO, "hmmufotu_tpu_torch", "data",
-                                    "gg_97_otus_GTR.sm"))
-    dg = DiscreteGammaModel(0.5, 4)
-    rates = np.asarray(dg.rates) * len(dg.rates)     # mean 1
-    cat = rng.integers(0, len(rates), n_cols)
-    seq = np.zeros((N, n_cols), np.int8)
-    seq[0] = rng.choice(4, n_cols, p=np.asarray(model.pi))
-    order = [0]
-    for u in order:
-        order.extend(children[u])
-    for v in order[1:]:
-        P = np.asarray(model.Pr_batch(brlen[v] * rates))   # [4 rates, 4, 4]
-        cum = np.cumsum(P, axis=-1)
-        rows = cum[cat, seq[parent[v]]]                     # [n_cols, 4]
-        u01 = rng.random(n_cols)[:, None]
-        seq[v] = np.minimum((u01 > rows).sum(1), 3)
-    gap_p = np.where(rng.random(n_cols) < 0.2, 0.9, 0.02)
-    names = {v: f"S{i}" for i, v in enumerate(sorted(leaf_nodes))}
-    with open(os.path.join(d, "synth.fasta"), "w") as fh:
-        for v in sorted(leaf_nodes):
-            s = np.array(list("ACGT"))[seq[v]]
-            s[rng.random(n_cols) < gap_p] = "-"
-            fh.write(f">{names[v]}\n{''.join(s)}\n")
-    # Newick, written iteratively (post-order assembly)
-    text = {}
-    for v in reversed(order):
-        body = (f"({','.join(text.pop(c) for c in children[v])})"
-                if children[v] else names[v])
-        text[v] = body if v == 0 else f"{body}:{brlen[v]:.6g}"
-    with open(os.path.join(d, "synth.tree"), "w") as fh:
-        fh.write(text[0] + ";\n")
-    # taxonomy of each leaf from its clade path (7 ranks)
-    ranks = ("k", "p", "c", "o", "f", "g", "s")
-    with open(os.path.join(d, "synth_taxonomy.txt"), "w") as fh:
-        for v in sorted(leaf_nodes):
-            p = path[v]
-            lin = ["k__Bacteria"] + [
-                f"{r}__{r.upper()}{''.join(map(str, p[:2 * lv]))}"
-                for lv, r in enumerate(ranks[1:], start=1)]
-            fh.write(f"{names[v]}\t{'; '.join(lin)}\n")
-    return N, max(depth)
-
-
 def build_synth_db(d: str, n_leaves: int, n_cols: int):
     """The synthetic DB, built in memory by the port's builder, its
     likelihood sweeps by the torch engine on the card."""
+    from evolved_inputs import synth_inputs
     from hmmufotu_tpu_torch.cli.build import build_database, build_parser
     from hmmufotu_tpu_torch.hmm import NGCL
     t = time.time()
@@ -1189,6 +1106,7 @@ def chimera_phase(fx, tree):
     archaeon, an isolated leaf of this DB, are flagged at the default lod
     0 by both packages: the reference algorithm's, not a fault.)"""
     import torch
+    from evolved_inputs import simulate_reads
     d = os.path.join(WORK, "chimera")
     os.makedirs(d, exist_ok=True)
     leaves = [u for u in range(tree.num_nodes)
@@ -1326,14 +1244,104 @@ def sweep_timer():
 
 
 # ---------------------------------------------------------------------------
-# the parallel layer: meshes on the one card, two processes
+# the normal entry points: build -> DB files -> assign
 # ---------------------------------------------------------------------------
 
-def write_fasta(path, reads):
-    with open(path, "w") as fh:
-        fh.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(reads)))
-    return path
+def cli_phase():
+    """The build CLI writes an evolved DB of CLI_LEAVES leaves x
+    SCALE_COLS columns to files (torch evaluate engine on the card); the
+    assign CLI loads them on the card twice, with its default placer (the
+    whole tree's messages on the card) and with --resident-window 1024,
+    on N_CLI_READS amplicon reads from one 1,024-column region; launches
+    counted from 0 for each run.  The first N_CLI_CPU_READS rows of each
+    against a CPU run of the assign CLI: alignments equal, the same
+    branch and taxon or a near tie on at most a quarter of the placed
+    rows (the synthetic DBs' rule of [scale])."""
+    import logging
+    import torch
+    from evolved_inputs import (FASTA, TAXONOMY, TREE, input_tree,
+                                simulate_reads, synth_inputs, write_fasta)
+    from torch_scale_assign import site_window
+    from torch_scale_cli import (LogStamps, db_file_bytes, resident_oow,
+                                 stage_seconds)
+    from hmmufotu_tpu_torch.cli import setup_logging
+    from hmmufotu_tpu_torch.cli.build import main as build_main
+    d = os.path.join(WORK, "cli")
+    t = time.time()
+    n_nodes, _ = synth_inputs(d, CLI_LEAVES, SCALE_COLS)
+    tree = input_tree(d)
+    L = tree.cs_len
+    r0, Wr = site_window(L, RESIDENT_COLS)
+    reads = simulate_reads(tree, np.random.default_rng(8), N_CLI_READS,
+                           region=(r0, r0 + Wr))
+    del tree
+    fa = write_fasta(os.path.join(d, "amplicon.fasta"), reads)
+    fa_cpu = write_fasta(os.path.join(d, "amplicon_cpu.fasta"),
+                         reads[:N_CLI_CPU_READS])
+    log(f"[cli] inputs: {CLI_LEAVES} evolved leaves ({n_nodes} nodes) x "
+        f"{SCALE_COLS} columns, {N_CLI_READS} amplicon reads of columns "
+        f"[{r0}, {r0 + Wr}) in {time.time() - t:.1f} s")
+    setup_logging(1)
+    root = logging.getLogger()
 
+    def stamped(fn):
+        stamps = LogStamps()
+        root.addHandler(stamps)
+        try:
+            return fn(), stamps.rows
+        finally:
+            root.removeHandler(stamps)
+
+    prefix = os.path.join(d, "db")
+    rc, rows = stamped(lambda: build_main([
+        os.path.join(d, FASTA), os.path.join(d, TREE), "-a",
+        os.path.join(d, TAXONOMY), "-n", prefix, "-s", "GTR",
+        "--msg-dtype", "f32", "--eval-engine", "torch"]))
+    if rc != 0:
+        raise RuntimeError("build CLI failed")
+    stages = {k: round(v, 2) for k, v in stage_seconds(rows).items()}
+    log(f"[cli] build CLI stage seconds {json.dumps(stages)}; DB file "
+        f"bytes {json.dumps(db_file_bytes(prefix))}")
+    t = time.time()
+    cpu = cli_rows([prefix, fa_cpu], os.path.join(d, "cpu.tsv"), "cpu")
+    log(f"[cli] assign CLI on the CPU, {len(cpu)} reads: "
+        f"{time.time() - t:.1f} s")
+    for flags in ([], ["--resident-window", str(RESIDENT_COLS)]):
+        label = " ".join(flags) or "default (whole tree)"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cnt = reset_counters()
+        t = time.time()
+        gpu, rows = stamped(lambda: cli_rows(
+            [prefix, fa] + flags, os.path.join(d, f"gpu{len(flags)}.tsv")))
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        launches = {k: cnt[k].n for k in MAIN_KERNELS}
+        at = lambda head: [round(s, 2) for s, m in rows
+                           if m.startswith(head)]
+        log(f"[cli] assign {label} on the card: {len(gpu)} reads in "
+            f"{dt:.2f} s (DB load and strand test included), seconds at "
+            f"'Database loaded' {at('Database loaded')}, 'Processed' "
+            f"{at('Processed')}; launches {launches}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"out of a {RESIDENT_COLS}-column resident window: "
+            f"{json.dumps(resident_oow(gpu, L, RESIDENT_COLS))}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel was not launched: {launches}")
+        # the synthetic DBs' near-tie allowance (as in [scale]): short
+        # sibling branches put candidates within f32 rounding of each
+        # other, which the card and the CPU sum in different orders
+        ok, stats = compare_rows(gpu[:len(cpu)], cpu, 0.25)
+        log(f"[cli] {label}, first {len(cpu)} rows vs the CPU run: "
+            f"{json.dumps(stats)}")
+        if not ok or len(gpu) != N_CLI_READS:
+            raise AssertionError(f"assign {label} disagrees with the CPU "
+                                 f"run")
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer: meshes on the one card, two processes
+# ---------------------------------------------------------------------------
 
 def cli_rows(argv, out, device="cuda"):
     """The port's assign CLI writing `out`; returns its body rows."""
@@ -1541,6 +1549,7 @@ def parallel_processes(fx, fa, d, plain):
 
 
 def parallel_phase(fx, fx_reads, sdb, s_reads):
+    from evolved_inputs import write_fasta
     d = os.path.join(WORK, "parallel")
     os.makedirs(d, exist_ok=True)
     fa = write_fasta(os.path.join(d, "reads.fasta"), fx_reads)
@@ -1564,6 +1573,8 @@ def main() -> int:
               "hmmufotu_tpu_torch not found)", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from evolved_inputs import simulate_reads
     t_all = time.time()
     device_name = torch.cuda.get_device_name(0)
     phase_s, last = {}, [t_all]
@@ -1826,6 +1837,13 @@ def main() -> int:
     parallel_phase(fx, fx_reads, sdb, s_reads)
 
     phase_s["parallel"] = lap()
+
+    # ---- 12. the normal entry points: build -> DB files -> assign --------
+    t = time.time()
+    cli_phase()
+    log(f"[cli] phase took {time.time() - t:.1f} s")
+
+    phase_s["cli"] = lap()
 
     # ---- result ----------------------------------------------------------
     # launches and path_total_ms are those of the path that runs the

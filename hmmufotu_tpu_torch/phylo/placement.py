@@ -34,6 +34,15 @@ from .cuda_place import SAT_P, _finite_guard
 from .tree import BRANCH_EPS, MAX_ITER, PTUnrooted
 
 INF = float("inf")
+# host bytes of the f32 block a message upload stages at once
+UPLOAD_CHUNK_BYTES = 256 << 20
+# device bytes of one node block of the seed product's operand planes:
+# at a full-width union window over every node of the gg_97 shape
+# (149,999 x 6,000 columns) the whole planes would take ~31 GB
+PDIST_CHUNK_BYTES = 1 << 30
+# bytes a node's planes take per window column: the bool, bf16 and f32
+# copies of the 4 one-hot planes and of the validity plane
+PDIST_BYTES_PER_COL = 5 * (1 + 2 + 4)
 
 
 class DeviceTree(NamedTuple):
@@ -68,14 +77,12 @@ class DeviceTree(NamedTuple):
         rates = np.ones(1) if tree.dg is None \
             else np.asarray(tree.dg.rates)
         s0 = 0
+        sl = slice(None)
+        seqs = tree.seqs
         seq1h = nvalid = None
-        if site_window is None:
-            msg_up, msg_down, seqs = tree.msg_up, tree.msg_down, tree.seqs
-        else:
+        if site_window is not None:
             s0, Ws = site_window
             sl = slice(s0, s0 + Ws)
-            msg_up = np.ascontiguousarray(tree.msg_up[:, :, sl])
-            msg_down = np.ascontiguousarray(tree.msg_down[:, :, sl])
             seqs = np.ascontiguousarray(tree.seqs[:, sl])
             one_hot = (seqs[:, :, None]
                        == np.arange(4, dtype=np.int8)).astype(np.int8)
@@ -83,9 +90,10 @@ class DeviceTree(NamedTuple):
                                     device=dev)
             nvalid = torch.as_tensor((seqs >= 0).astype(np.int8),
                                      device=dev)
-        fm = lambda a: f(a).to(msg_dtype or torch.float32)
+        fm = lambda a: upload_messages(a[:, :, sl], dev,
+                                       msg_dtype or torch.float32)
         return cls(
-            msg_up=fm(msg_up), msg_down=fm(msg_down),
+            msg_up=fm(tree.msg_up), msg_down=fm(tree.msg_down),
             seqs=torch.as_tensor(np.asarray(seqs, np.int8), device=dev),
             brlen=f(tree.brlen), heights=f(tree.heights),
             parent=torch.as_tensor(np.asarray(tree.parent, np.int64),
@@ -94,6 +102,23 @@ class DeviceTree(NamedTuple):
             anno_id=torch.as_tensor(anno_ids(tree), device=dev),
             pi=f(tree.model.pi), log_pi=f(np.log(tree.model.pi)),
             rates=f(rates), msg_s0=int(s0), seq1h=seq1h, nvalid=nvalid)
+
+
+def upload_messages(msg: np.ndarray, device, dtype) -> torch.Tensor:
+    """[N, 4, Lw] host messages (any float dtype, a view is fine) as a
+    `dtype` tensor on `device`, filled one node block at a time: each
+    block is rounded to f32 on the host, then to `dtype` on the device,
+    so no f32 copy of the whole array is made on the host (14.4 GB per
+    message at the gg_97 shape).  The values are those of one whole
+    conversion."""
+    out = torch.empty(msg.shape, dtype=dtype, device=device)
+    step = max(1, UPLOAD_CHUNK_BYTES
+               // max(1, 4 * int(np.prod(msg.shape[1:]))))
+    for n0 in range(0, len(msg), step):
+        block = np.asarray(msg[n0:n0 + step], np.float32)
+        out[n0:n0 + len(block)] = torch.as_tensor(
+            block, device=device).to(dtype)
+    return out
 
 
 def anno_ids(tree: PTUnrooted) -> np.ndarray:
@@ -227,6 +252,27 @@ def seed_pdist_bf16(seqs_w: torch.Tensor, q_valid: torch.Tensor,
                        torch.full_like(both, math.nan))
 
 
+def seed_pdist(seqs_w: torch.Tensor, q_valid: torch.Tensor, planes,
+               n_nodes: int) -> torch.Tensor:
+    """seed_pdist_bf16 against n_nodes nodes, one node block at a time:
+    planes(n0, n1) gives the bf16 one-hot and validity planes of nodes
+    [n0, n1), made only while their block's product runs, so the planes
+    of a full-width window never exist whole.  The counts are integers
+    below 2^24, exact in f32 in any summation order, so the result is
+    that of one product over all nodes, bit for bit.  Returns [B, N]
+    f32."""
+    B, Ws = seqs_w.shape
+    step = max(1, PDIST_CHUNK_BYTES // (PDIST_BYTES_PER_COL * max(Ws, 1)))
+    if step >= n_nodes:
+        return seed_pdist_bf16(seqs_w, q_valid, *planes(0, n_nodes))
+    dist = torch.empty((B, n_nodes), dtype=torch.float32,
+                       device=seqs_w.device)
+    for n0 in range(0, n_nodes, step):
+        n1 = min(n0 + step, n_nodes)
+        dist[:, n0:n1] = seed_pdist_bf16(seqs_w, q_valid, *planes(n0, n1))
+    return dist
+
+
 def _wrap(idx: torch.Tensor, n: int) -> torch.Tensor:
     """numpy-style negative index (the root's parent -1 -> n-1)."""
     return torch.where(idx < 0, idx + n, idx)
@@ -282,16 +328,19 @@ def place_batch_device(dt: DeviceTree, seq_win: torch.Tensor,
     win = (site_idx >= starts[:, None]) & (site_idx <= ends[:, None])
     q_valid = (seqs_w >= 0) & win
     if dt.seq1h is not None:
-        n1h8 = dt.seq1h.to(torch.bfloat16)
-        nv8 = dt.nvalid.to(torch.bfloat16)
+        def planes(n0, n1):
+            return (dt.seq1h[n0:n1].to(torch.bfloat16),
+                    dt.nvalid[n0:n1].to(torch.bfloat16))
     else:
         lo = min(max(s0 - dt.msg_s0, 0), dt.seqs.shape[1] - Ws)
-        nseqs_w = dt.seqs[:, lo:lo + Ws]
         base4 = torch.arange(4, dtype=torch.int8, device=dev)
-        n1h8 = (nseqs_w[:, :, None] == base4).to(torch.bfloat16) \
-            .reshape(N, Ws * 4)
-        nv8 = (nseqs_w >= 0).to(torch.bfloat16)
-    dist = seed_pdist_bf16(seqs_w, q_valid, n1h8, nv8)     # [B, N]
+
+        def planes(n0, n1):
+            nseqs_w = dt.seqs[n0:n1, lo:lo + Ws]
+            return ((nseqs_w[:, :, None] == base4).to(torch.bfloat16)
+                    .reshape(n1 - n0, Ws * 4),
+                    (nseqs_w >= 0).to(torch.bfloat16))
+    dist = seed_pdist(seqs_w, q_valid, planes, N)          # [B, N]
 
     eligible = (dt.parent >= 0) & (dt.heights <= max_height)
     n_msg = dt.msg_up.shape[0]

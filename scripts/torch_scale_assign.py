@@ -38,6 +38,7 @@ import argparse
 import gzip
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -101,35 +102,44 @@ def site_window(length: int, span: int) -> tuple[int, int]:
     return s_lo, min(span, length - s_lo)
 
 
-def window_messages(tree, args, s_lo, Ws, dev, res):
+def window_messages(tree, args, s_lo, Ws, dev, res, whole=False):
     """Fill the tree's messages on [s_lo, s_lo + Ws) by the torch engine
-    on dev, or from the cache file of the same tree, model and window."""
+    on dev, or from the cache file of the same tree, model and window;
+    with whole=True on every column (the cache file named so)."""
     import torch
     L = args.length
+    lo, hi = (0, L) if whole else (s_lo, s_lo + Ws)
     cache = ""
     if args.cache:
         os.makedirs(args.cache, exist_ok=True)
+        tag = "whole" if whole else f"{s_lo}_{Ws}"
         cache = os.path.join(
             args.cache, f"torch_msgs_{args.leaves}_{L}_{args.seed}_"
-            f"{args.model}_{s_lo}_{Ws}.npz")
+            f"{args.model}_{tag}.npz")
     t0 = time.perf_counter()
     if cache and os.path.exists(cache):
         z = np.load(cache)
-        tree.msg_up = np.zeros((tree.num_nodes, 4, L), np.float32)
-        tree.msg_down = np.zeros((tree.num_nodes, 4, L), np.float32)
-        tree.msg_up[:, :, s_lo:s_lo + Ws] = z["up"]
-        tree.msg_down[:, :, s_lo:s_lo + Ws] = z["down"]
+        if whole:
+            tree.msg_up, tree.msg_down = z["up"], z["down"]
+        else:
+            tree.msg_up = np.zeros((tree.num_nodes, 4, L), np.float32)
+            tree.msg_down = np.zeros((tree.num_nodes, 4, L), np.float32)
+            tree.msg_up[:, :, lo:hi] = z["up"]
+            tree.msg_down[:, :, lo:hi] = z["down"]
         del z
         res["eval_cached"] = True
     else:
         tree.evaluate(dtype=np.float32, engine="torch",
-                      budget_bytes=4 << 30, sites=(s_lo, s_lo + Ws),
-                      device=dev)
+                      budget_bytes=4 << 30,
+                      sites=None if whole else (lo, hi), device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        if cache:
-            np.savez(cache, up=tree.msg_up[:, :, s_lo:s_lo + Ws],
-                     down=tree.msg_down[:, :, s_lo:s_lo + Ws])
+        up, down = tree.msg_up[:, :, lo:hi], tree.msg_down[:, :, lo:hi]
+        # the whole tree's pair is 28.8 GB at the gg_97 shape: cached only
+        # where the disk holds it twice over
+        if cache and shutil.disk_usage(args.cache).free \
+                > 2 * (up.nbytes + down.nbytes):
+            np.savez(cache, up=up, down=down)
     res["t_eval_s"] = time.perf_counter() - t0
     res["site_window"] = [int(s_lo), int(Ws)]
 

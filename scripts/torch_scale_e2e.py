@@ -8,7 +8,10 @@ x 6,000 columns at --leaves 75000 --length 6000):
   CSFM seed lookup over the leaves' concatenation (host)
     -> banded Viterbi DP with in-kernel traceback at K ~ 6,000 (K1)
     -> alignment strings (host)
-    -> window-resident SEP placement (K2, K3) and Q values (card).
+    -> window-resident SEP placement (K2, K3) and Q values (card);
+       with --whole-tree every column is evaluated and the whole tree's
+       messages stay on the card (the assign CLI's default placer), and
+       no read goes to the exact host path.
 
 The CSFM index, the profile HMM and the evaluated message window are
 cached under --cache (default .bench/torch_scale_cache, gitignored; file
@@ -24,16 +27,21 @@ c_node, parity_cnode_exact); as the JAX script counts them (the same
 c_node, or the host's pick better than the device's by at most 8 f32
 ulps of its loglik, parity_cnode_match); and by the device's best
 loglik within 8 ulps of the host's either way (parity_loglik_match).
-The run fails when fewer than 95% agree by either of the last two.  The
+Under --whole-tree the reads of the last timed stream whose placement
+window leaves the span (those the window-resident placer sends to the
+exact host path) are held against that path too (parity_oow_*).  The
+run fails when fewer than 95% agree by either of the last two.  The
 JAX script's count alone cannot tell a lower precision: bf16 message
 storage passes it, while its logliks stray from the host's by tens of
 nats and more.
 
     python scripts/torch_scale_e2e.py --leaves 75000 --length 6000 \
-        --reads 20480 --batch 2048 --repeat 3 [--msg-dtype bf16]
+        --reads 20480 --batch 2048 --repeat 3 [--msg-dtype bf16] \
+        [--whole-tree]
 CPU smoke:
     python scripts/torch_scale_e2e.py --leaves 300 --length 1200 \
-        --reads 64 --batch 32 --parity 16 --repeat 2 --device cpu
+        --reads 64 --batch 32 --parity 16 --repeat 2 --device cpu \
+        [--whole-tree]
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -113,22 +121,14 @@ def build_index_and_hmm(tree, leaves, args, res):
     return csfm, hmm
 
 
-def parity(pl, aligner, csfm, tree, placer, reads, leaf_ids, args, GLOBAL):
-    """The first --parity reads through assign_stream against the exact
-    host SEP path on the same alignments."""
-    P = min(args.parity, len(reads))
-    sub = reads[:max(P, args.batch)]
-    alns, best = [], []
-    for a, b in pl.assign_stream(aligner, csfm, tree, placer, sub,
-                                 args.batch, mode=GLOBAL,
-                                 rng=np.random.default_rng(2)):
-        alns.extend(a)
-        best.extend(b)
-    n_exact = n_match = n_ll = n_leaf = n_both = n_trunc = n_trunc_mism = 0
+def host_agreement(pl, tree, alns, best, rows, W, args, log_as):
+    """The device's best placements of `rows` against the exact host SEP
+    path (pipeline.assign_read) on the same alignments: the counts of the
+    module docstring's three rules, and the largest loglik gap."""
+    n_exact = n_match = n_ll = n_both = n_trunc = n_trunc_mism = 0
+    n_trunc_ll = 0
     max_dll = 0.0
-    t0 = time.perf_counter()
-    W = placer.W
-    for r in range(P):
+    for r in rows:
         if best[r] is None or not alns[r].is_valid():
             continue
         seq = pl.aln_to_digital(tree, alns[r])
@@ -143,6 +143,11 @@ def parity(pl, aligner, csfm, tree, placer, reads, leaf_ids, args, GLOBAL):
         dll = abs(host.loglik - best[r].loglik)
         max_dll = max(max_dll, dll)
         n_ll += int(dll <= 8 * ulp)
+        n_trunc_ll += int(trunc and dll <= 8 * ulp)
+        if dll > 8 * ulp:
+            log(f"{log_as} loglik apart r{r}: dev {best[r].loglik:.1f} "
+                f"host {host.loglik:.1f} span {span}"
+                + (" TRUNCATED" if trunc else ""))
         if best[r].c_node == host.c_node:
             n_exact += 1
             n_match += 1
@@ -154,20 +159,52 @@ def parity(pl, aligner, csfm, tree, placer, reads, leaf_ids, args, GLOBAL):
                 n_match += 1
             else:
                 n_trunc_mism += int(trunc)
-                log(f"parity mismatch r{r}: dev {best[r].c_node} "
+                log(f"{log_as} mismatch r{r}: dev {best[r].c_node} "
                     f"(ll {best[r].loglik:.1f}) host {host.c_node} "
                     f"(ll {host.loglik:.1f}) span {span}"
                     + (" TRUNCATED" if trunc else ""))
-        n_leaf += int(best[r].c_node == leaf_ids[r])
-    return {"t_parity_s": time.perf_counter() - t0,
-            "parity_reads": int(n_both),
-            "parity_cnode_exact": int(n_exact),
-            "parity_cnode_match": int(n_match),
-            "parity_loglik_match": int(n_ll),
-            "parity_max_abs_dloglik": float(max_dll),
-            "parity_span_gt_W": int(n_trunc),
-            "parity_mism_span_gt_W": int(n_trunc_mism),
-            "dev_hits_true_leaf": int(n_leaf)}
+    return {"reads": int(n_both), "cnode_exact": int(n_exact),
+            "cnode_match": int(n_match), "loglik_match": int(n_ll),
+            "max_abs_dloglik": float(max_dll),
+            "span_gt_W": int(n_trunc), "mism_span_gt_W": int(n_trunc_mism),
+            "loglik_match_span_gt_W": int(n_trunc_ll)}
+
+
+def parity(pl, aligner, csfm, tree, placer, reads, leaf_ids, args, GLOBAL):
+    """The first --parity reads through assign_stream against the exact
+    host SEP path on the same alignments."""
+    P = min(args.parity, len(reads))
+    sub = reads[:max(P, args.batch)]
+    alns, best = [], []
+    for a, b in pl.assign_stream(aligner, csfm, tree, placer, sub,
+                                 args.batch, mode=GLOBAL,
+                                 rng=np.random.default_rng(2)):
+        alns.extend(a)
+        best.extend(b)
+    t0 = time.perf_counter()
+    got = host_agreement(pl, tree, alns, best, range(P), placer.W, args,
+                         "parity")
+    out = {"t_parity_s": time.perf_counter() - t0}
+    out.update({"parity_" + k: v for k, v in got.items()})
+    out["dev_hits_true_leaf"] = int(sum(
+        b is not None and b.c_node == leaf_ids[r]
+        for r, b in enumerate(best[:P])))
+    return out
+
+
+def leaves_window(st: int, en: int, s_lo: int, Ws: int, W: int) -> bool:
+    """Whether the placement window of a read aligned on 0-based columns
+    [st, en] leaves the resident site window [s_lo, s_lo + Ws): the rule
+    by which pipeline.dispatch_place_batch sends a read to the exact host
+    path (the device covers [st, min(en, st + W - 1)])."""
+    return st < s_lo or min(en, st + W - 1) > s_lo + Ws - 1
+
+
+def out_of_window(alns, s_lo, Ws, W) -> list[int]:
+    """Rows of valid alignments whose placement window leaves [s_lo,
+    s_lo + Ws)."""
+    return [r for r, a in enumerate(alns) if a.is_valid() and leaves_window(
+        a.cs_start - 1, a.cs_end - 1, s_lo, Ws, W)]
 
 
 def main(argv=None):
@@ -199,6 +236,11 @@ def main(argv=None):
                          "ops' device time and the device's idle share")
     ap.add_argument("--device", default="cuda",
                     help="cuda; cpu only when asked for")
+    ap.add_argument("--whole-tree", action="store_true",
+                    help="evaluate every column and keep the whole tree's "
+                         "messages on the device (the assign CLI's "
+                         "default placer); --span then only bounds the "
+                         "columns the reads come from")
     args = ap.parse_args(argv)
 
     import torch
@@ -213,7 +255,8 @@ def main(argv=None):
     res = {"device": str(dev), "card": card_line(dev),
            "mode": "end_to_end", "leaves": args.leaves,
            "length": args.length, "msg_dtype": args.msg_dtype,
-           "batch": args.batch, "read_len": args.read_len}
+           "batch": args.batch, "read_len": args.read_len,
+           "whole_tree": args.whole_tree}
 
     # ---- tree + model (the construction of torch_scale_assign) ----------
     t0 = time.perf_counter()
@@ -230,8 +273,9 @@ def main(argv=None):
     # ---- window-restricted evaluate (cache shared with the placement
     # harness) -------------------------------------------------------------
     s_lo, Ws = site_window(args.length, args.span)
-    log("evaluate the message window...")
-    window_messages(tree, args, s_lo, Ws, dev, res)
+    log("evaluate the " + ("whole tree..." if args.whole_tree
+                           else "message window..."))
+    window_messages(tree, args, s_lo, Ws, dev, res, whole=args.whole_tree)
     if args.eval_only:
         print(json.dumps({"eval_only": True, **res}))
         return 0
@@ -262,7 +306,8 @@ def main(argv=None):
     placer = DevicePlacer(tree, window=args.window,
                           max_nseed=args.max_nseed, device=dev,
                           msg_dtype=msg_dtype,
-                          site_window=(int(s_lo), int(Ws)))
+                          site_window=None if args.whole_tree
+                          else (int(s_lo), int(Ws)))
     if cuda:
         torch.cuda.synchronize(dev)
     res["t_stage_s"] = time.perf_counter() - t0
@@ -295,15 +340,15 @@ def main(argv=None):
     from hmmufotu_tpu_torch.hmm.viterbi import TIMING
 
     def stream(read_list, srng):
-        n_done = n_valid = 0
+        all_alns, all_best = [], []
         for alns, best in pl.assign_stream(
                 aligner, csfm, tree, placer, read_list, args.batch,
                 mode=GLOBAL, rng=srng):
-            n_valid += sum(a.is_valid() for a in alns)
-            n_done += sum(b is not None for b in best)
+            all_alns.extend(alns)
+            all_best.extend(best)
         if cuda:
             torch.cuda.synchronize(dev)
-        return n_done, n_valid
+        return all_alns, all_best
 
     # ---- warm-up --------------------------------------------------------
     t0 = time.perf_counter()
@@ -322,7 +367,7 @@ def main(argv=None):
         n_host[0] = 0
         log(f"timed stream {k + 1} of {args.repeat}...")
         t0 = time.perf_counter()
-        n_done, n_valid = stream(reads, np.random.default_rng(2))
+        alns, best = stream(reads, np.random.default_rng(2))
         dt = time.perf_counter() - t0
         runs.append(args.reads / dt)
         hosts.append(n_host[0])
@@ -335,8 +380,8 @@ def main(argv=None):
     pl.assign_read = orig_assign_read
     pl.batch_find_seed_vpaths = orig_seed
     res["reads_total"] = args.reads
-    res["reads_aligned"] = int(n_valid)
-    res["reads_placed"] = int(n_done)
+    res["reads_aligned"] = int(sum(a.is_valid() for a in alns))
+    res["reads_placed"] = int(sum(b is not None for b in best))
     res["host_fallback_reads"] = hosts[0]
     res["host_fallback_reads_runs"] = hosts
     res["repeat"] = args.repeat
@@ -357,10 +402,22 @@ def main(argv=None):
         res.update(parity(pl, aligner, csfm, tree, placer, reads, leaf_ids,
                           args, GLOBAL))
 
+    gates = ["parity_"] if "parity_reads" in res else []
+    if args.whole_tree:
+        # the reads the window-resident placer would send to the exact
+        # host path, placed here on the device, against that path
+        oow = out_of_window(alns, s_lo, Ws, placer.W)
+        log(f"parity of the {len(oow)} reads outside the span...")
+        t0 = time.perf_counter()
+        got = host_agreement(pl, tree, alns, best, oow, placer.W, args,
+                             "out-of-span parity")
+        res["t_parity_oow_s"] = time.perf_counter() - t0
+        res.update({"parity_oow_" + k: v for k, v in got.items()})
+        gates.append("parity_oow_")
     res["peak_rss_gb"] = peak_rss_gb()
     print(json.dumps(res))
-    ok = (min(res["parity_cnode_match"], res["parity_loglik_match"])
-          >= 0.95 * res["parity_reads"] if "parity_reads" in res else True)
+    ok = all(min(res[g + "cnode_match"], res[g + "loglik_match"])
+             >= 0.95 * res[g + "reads"] for g in gates)
     return 0 if ok else 1
 
 

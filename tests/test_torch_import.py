@@ -11,9 +11,11 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "hmmufotu_tpu_torch")
-# the port's gg_97-shape harnesses
+# the port's gg_97-shape harnesses, and the generator of evolved inputs
+# that chip_smoke.py and torch_scale_cli.py share
 SCRIPTS = [os.path.join(REPO, "scripts", f"torch_scale_{n}.py")
-           for n in ("eval", "assign", "e2e")]
+           for n in ("eval", "assign", "e2e", "cli")]
+GENERATOR = os.path.join(REPO, "scripts", "evolved_inputs.py")
 
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -53,6 +55,7 @@ def _sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield from SCRIPTS
+    yield GENERATOR
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
@@ -78,7 +81,7 @@ for path in sys.argv[1:]:
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    assert callable(mod.main), name
+    assert callable(getattr(mod, "main", None) or mod.synth_inputs), name
 ref = sorted(m for m in sys.modules
              if m.startswith("hmmufotu_tpu.") or m.startswith("jax."))
 assert not ref, ref
@@ -87,13 +90,13 @@ print(len(sys.argv) - 1)
 
 
 def test_scale_scripts_load_without_jax():
-    """The three harnesses load with jax and the reference package
-    blocked."""
-    out = subprocess.run([sys.executable, "-c", LOAD_SCRIPTS] + SCRIPTS,
-                         cwd=REPO, capture_output=True, text=True,
-                         timeout=120)
+    """The four harnesses and the generator load with jax and the
+    reference package blocked."""
+    out = subprocess.run([sys.executable, "-c", LOAD_SCRIPTS] + SCRIPTS
+                         + [GENERATOR], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "3"
+    assert out.stdout.strip() == "5"
 
 
 @pytest.mark.parametrize("path", SCRIPTS,

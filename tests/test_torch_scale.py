@@ -238,6 +238,75 @@ def test_scale_e2e_matches_reference(msg_dtype):
     assert got["card"] is None and got["peak_rss_gb"] > 0
 
 
+def test_scale_e2e_whole_tree_matches_reference():
+    """--whole-tree (every column evaluated, the whole tree's messages on
+    the device, no site window) against the reference script whose site
+    window is the whole width (--span 1200 of 1,200 columns): the same
+    reads, placed by both without the exact host path."""
+    args = E2E + ["--span", "1200"]
+    ref_proc = start("scale_e2e.py", args, record="hmmufotu_tpu")
+    got_proc = start("torch_scale_e2e.py", args + [
+        "--whole-tree", "--device", "cpu", "--repeat", "1", "--cache", ""],
+        record="hmmufotu_tpu_torch")
+    ref, ref_rows = recorded(ref_proc)
+    got, rows = recorded(got_proc)
+    assert ref["site_window"] == got["site_window"] == [0, 1200]
+    assert got["whole_tree"] is True
+    for k in ("n_nodes", "K", "csfm_chars", "reads_aligned",
+              "reads_placed"):
+        assert got[k] == ref[k], k
+    assert ref["host_fallback_reads"] == got["host_fallback_reads"] == 0
+    # no read leaves a span of the whole width
+    assert got["parity_oow_reads"] == 0
+    for r in (ref, got):
+        assert r["parity_cnode_match"] >= 0.95 * r["parity_reads"] > 0
+    assert got["parity_loglik_match"] >= 0.95 * got["parity_reads"]
+    assert_rows_agree(ref_rows["stream"], rows["stream"], 0.25)
+    assert_rows_agree(ref_rows["host"], rows["host"], 0.0)
+    # the whole tree's messages: 2 x [599, 4, 1200] f32 and more
+    assert got["db_resident_gb"] > 2 * 599 * 4 * 1200 * 4 / 1e9
+
+
+def test_out_of_window_rule_matches_dispatch(scripts_path):
+    """The reads torch_scale_e2e.py holds against the host path under
+    --whole-tree are those pipeline.dispatch_place_batch routes to it for
+    a window-resident placer of the same span."""
+    from torch_scale_e2e import out_of_window
+    from hmmufotu_tpu_torch import pipeline as pl
+    from hmmufotu_tpu_torch.hmm.profile import HmmAlignment
+
+    class Placer:        # what dispatch_place_batch reads of a placer
+        site_window, W, C, ref_rank = (128, 512), 256, 5, False
+        start_bound = 128 + 512 - 256
+        seen = None
+
+        def dispatch_win(self, seqs, starts, *a, **kw):
+            Placer.seen = np.asarray(starts)
+            return {"summary": None}
+
+    routed = []
+    alns = []
+    # 1-based; the window covers [start, min(end, start + 255)] of the
+    # 0-based columns, and must lie in [128, 640)
+    for cs_start, cs_end in ((100, 300), (129, 380), (500, 900), (129, 640),
+                             (390, 700), (400, 600)):
+        a = HmmAlignment()
+        a.seq_start, a.seq_end, a.hmm_start, a.hmm_end = 1, 2, 1, 2
+        a.K, a.L, a.cs_start, a.cs_end = 9, 1200, cs_start, cs_end
+        a.cost, a.align = 1.0, "-" * 1200
+        alns.append(a)
+    assert all(a.is_valid() for a in alns)
+    orig = pl.assign_read, pl.aln_to_digital
+    pl.assign_read = lambda tree, aln, *a, **kw: routed.append(aln)
+    pl.aln_to_digital = lambda tree, aln: None
+    try:
+        pl.dispatch_place_batch(None, Placer(), alns)
+    finally:
+        pl.assign_read, pl.aln_to_digital = orig
+    want = [i for i, a in enumerate(alns) if any(a is r for r in routed)]
+    assert out_of_window(alns, 128, 512, 256) == want == [0, 2, 4]
+
+
 ASSIGN = ["--leaves", "300", "--length", "1200", "--reads", "64", "--batch",
           "32", "--parity", "16"]
 
