@@ -69,7 +69,15 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               tree on the card) and with --resident-window 1024, each on
               2,048 amplicon reads: stage seconds, file sizes, launches,
               and the first 64 rows of each against a CPU run of the
-              assign CLI.
+              assign CLI;
+ 13. pe       paired-end assign on the cli phase's DB files (no second
+              build): 1,024 pairs of 2 x 250 bp mates written by the
+              port's sim CLI at its defaults (fragments of 500 +- 30
+              columns) through the assign CLI on the card, launches
+              counted from 0, pairs/s, merged pairs wider than W, device
+              peak; the first 64 pairs through the CLI on the CPU, row for
+              row (alignments equal, the synthetic DBs' near-tie rule) and
+              the same badly oriented pairs.
 
 Prints one `kernels` JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -108,6 +116,8 @@ N_CHIMERA_CLEAN = 64    # simulated reads beside the chimera
 CLI_LEAVES = 2048       # the [cli] phase's evolved DB: 4,095 nodes
 N_CLI_READS = 2048      # its amplicon reads, one assign batch
 N_CLI_CPU_READS = 64    # the first of them in the CPU run
+N_CLI_PAIRS = 1024      # sim CLI pairs at its defaults on the [cli] DB
+N_CLI_CPU_PAIRS = 64    # the first of them in the CPU run
 # the reference package's tolerances between its two evaluate engines
 # (tests/test_scale_eval.py): messages on finite entries, tree loglik
 EVAL_ATOL, EVAL_LL_RTOL = 0.05, 1e-5
@@ -1339,6 +1349,86 @@ def cli_phase():
                                  f"run")
 
 
+def pe_cli_phase():
+    """Paired-end assign (BASELINE config #4's path) on the DB files the
+    [cli] phase wrote: N_CLI_PAIRS pairs from the port's sim CLI at its
+    defaults (-l 250, fragments of 500 +- 30 columns from anywhere on the
+    6,000), through the assign CLI on the card with launches counted from
+    0, then the first N_CLI_CPU_PAIRS through it on the CPU: rows by
+    compare_rows at the synthetic DBs' near-tie rule, the badly oriented
+    pairs' rows equal."""
+    import logging
+    import torch
+    from torch_scale_cli import LogStamps
+    from hmmufotu_tpu_torch.cli.sim import main as sim_main
+    from hmmufotu_tpu_torch.seq import SeqWriter, read_seqs
+    d = os.path.join(WORK, "cli")
+    prefix = os.path.join(d, "db")
+    r1, r2 = os.path.join(d, "pe_1.fasta"), os.path.join(d, "pe_2.fasta")
+    t = time.time()
+    if sim_main([prefix, r1, "-m", r2, "-N", str(N_CLI_PAIRS), "-l",
+                 "250"]) != 0:
+        raise RuntimeError("sim failed")
+    cpu_files = []
+    for src in (r1, r2):
+        dst = src.replace(".fasta", "_cpu.fasta")
+        with SeqWriter(dst) as w:
+            for rec in list(read_seqs(src))[:N_CLI_CPU_PAIRS]:
+                w.write(rec)
+        cpu_files.append(dst)
+    ids = {rec.id for rec in read_seqs(cpu_files[0])}
+    log(f"[pe] 6,000 columns: {N_CLI_PAIRS} pairs from the sim CLI at its "
+        f"defaults in {time.time() - t:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = LogStamps()
+    root = logging.getLogger()
+    root.addHandler(stamps)
+    cnt = reset_counters()
+    t = time.time()
+    try:
+        gpu, gpu_chi = run_cli([prefix, r1, r2], "cuda",
+                               os.path.join(d, "pe_gpu.tsv"),
+                               os.path.join(d, "pe_gpu_chi.tsv"))
+        torch.cuda.synchronize()
+    finally:
+        root.removeHandler(stamps)
+    dt = time.time() - t
+    launches = {k: cnt[k].n for k in MAIN_KERNELS}
+    loaded = [s for s, m in stamps.rows if m.startswith("Database loaded")]
+    done = [s for s, m in stamps.rows if m.startswith("Processed")]
+    loop_s = done[-1] - loaded[-1] if loaded and done else float("nan")
+    W = 512
+    spans = [int(r[7]) - int(r[6]) + 1 for r in gpu]
+    n_wide = sum(w > W for w in spans)
+    log(f"[pe] 6,000 columns: {N_CLI_PAIRS} pairs through the assign CLI "
+        f"on the card in {dt:.2f} s (DB load and strand test included; "
+        f"{loop_s:.2f} s from 'Database loaded' to the last 'Processed': "
+        f"{N_CLI_PAIRS / loop_s:.1f} pairs/s); launches {launches}; "
+        f"merged {len(gpu)}, badly oriented {len(gpu_chi)}; merged reads "
+        f"wider than W = {W} columns: {n_wide} ({n_wide / len(gpu):.3f}), "
+        f"widest {max(spans)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    t = time.time()
+    cpu, cpu_chi = run_cli([prefix] + cpu_files, "cpu",
+                           os.path.join(d, "pe_cpu.tsv"),
+                           os.path.join(d, "pe_cpu_chi.tsv"))
+    gpu_sub = [r for r in gpu if r[0] in ids]
+    gpu_chi_sub = [r for r in gpu_chi if r[0] in ids]
+    # the synthetic DBs' near-tie allowance (as in [scale] and [cli])
+    ok, stats = compare_rows(gpu_sub, cpu, 0.25)
+    stats["badly_oriented_equal"] = gpu_chi_sub == cpu_chi
+    log(f"[pe] 6,000 columns, first {N_CLI_CPU_PAIRS} pairs vs the CPU run "
+        f"of the CLI ({time.time() - t:.1f} s): {json.dumps(stats)}")
+    if not ok or gpu_chi_sub != cpu_chi \
+            or len(gpu) + len(gpu_chi) != N_CLI_PAIRS \
+            or len(cpu) + len(cpu_chi) != N_CLI_CPU_PAIRS:
+        raise AssertionError("paired-end run on the 6,000-column DB "
+                             "disagrees with the CPU run")
+
+
 # ---------------------------------------------------------------------------
 # the parallel layer: meshes on the one card, two processes
 # ---------------------------------------------------------------------------
@@ -1844,6 +1934,13 @@ def main() -> int:
     log(f"[cli] phase took {time.time() - t:.1f} s")
 
     phase_s["cli"] = lap()
+
+    # ---- 13. paired-end assign on the 6,000-column DB files --------------
+    t = time.time()
+    pe_cli_phase()
+    log(f"[pe] 6,000-column phase took {time.time() - t:.1f} s")
+
+    phase_s["pe_cli"] = lap()
 
     # ---- result ----------------------------------------------------------
     # launches and path_total_ms are those of the path that runs the

@@ -51,6 +51,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_scale_eval import (card_line, device_peak_gb,  # noqa: E402
                               peak_rss_gb, synth_tree)
 
+# the names of the port's kernels in a profile (csrc/*.cu): K1, K4, K2,
+# K3, K5
+KERNEL_NAMES = ("viterbi_kernel", "est_kernel", "sep_kernel", "fp_kernel")
+
 
 def simulate_window_reads(tree, n, s_lo, s_hi, read_len, rng):
     """[n] aligned digital reads from leaf windows inside CS columns
@@ -220,6 +224,14 @@ def profile_window(fn, out_dir: str, dev) -> dict:
         print(f"  {r['us']:12.1f} us  {r['calls']:6d}x  {r['op'][:90]}",
               file=sys.stderr)
     out = {"trace": path, "top_ops": top, "time_of": what}
+    if cuda:
+        # the hand-written kernels by name, wherever they rank
+        out["kernels"] = {
+            name: {"us": sum(dev_us(e) for e in events if name in e.key),
+                   "calls": sum(int(e.count) for e in events
+                                if name in e.key)}
+            for name in KERNEL_NAMES}
+        print(f"  kernels: {json.dumps(out['kernels'])}", file=sys.stderr)
     busy = device_busy(path) if cuda else None
     if busy is not None:
         out["device_busy_us"], out["window_us"] = busy

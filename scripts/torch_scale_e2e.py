@@ -35,13 +35,27 @@ JAX script's count alone cannot tell a lower precision: bf16 message
 storage passes it, while its logliks stray from the host's by tens of
 nats and more.
 
+--paired runs BASELINE config #4 instead: --reads pairs of 2 x
+--read-len mates, each from one leaf fragment of the sim CLI's size
+(N(500, 30^2) columns) inside the span, through the assign CLI's own
+batch loop (cli.assign.batch_loop: both mates aligned in GLOBAL mode,
+the orientation test and merge on the host, the merged reads placed on
+the device; implies --whole-tree), --repeat timed passes after a
+warm-up, with host clocks of its stages.  The first --parity pairs are
+held against the exact host path on the merged alignment clipped to the
+columns the device scores (clip_to_device_window; the run fails under
+95% by either rule) and, reported only, on the whole merged alignment.
+--mesh runs the passes again over parallel.make_mesh() (every local
+card; eight CPU shards on the CPU) and fails unless every row equals
+the passes' without it bit for bit.
+
     python scripts/torch_scale_e2e.py --leaves 75000 --length 6000 \
         --reads 20480 --batch 2048 --repeat 3 [--msg-dtype bf16] \
-        [--whole-tree]
+        [--whole-tree | --paired [--mesh]]
 CPU smoke:
     python scripts/torch_scale_e2e.py --leaves 300 --length 1200 \
         --reads 64 --batch 32 --parity 16 --repeat 2 --device cpu \
-        [--whole-tree]
+        [--whole-tree | --paired [--mesh]]
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -121,53 +135,78 @@ def build_index_and_hmm(tree, leaves, args, res):
     return csfm, hmm
 
 
-def host_agreement(pl, tree, alns, best, rows, W, args, log_as):
-    """The device's best placements of `rows` against the exact host SEP
-    path (pipeline.assign_read) on the same alignments: the counts of the
-    module docstring's three rules, and the largest loglik gap."""
-    n_exact = n_match = n_ll = n_both = n_trunc = n_trunc_mism = 0
-    n_trunc_ll = 0
-    max_dll = 0.0
+def host_placements(pl, tree, alns, best, rows, args) -> dict:
+    """{row: the exact host SEP path's best placement (pipeline.assign_read,
+    None where it places nothing)} of the rows of `rows` that the device
+    placed, on the same alignments."""
+    out = {}
     for r in rows:
-        if best[r] is None or not alns[r].is_valid():
-            continue
-        seq = pl.aln_to_digital(tree, alns[r])
-        host = pl.assign_read(tree, alns[r], seq, max_nseed=args.max_nseed)
-        if host is None:
+        if best[r] is not None and alns[r].is_valid():
+            seq = pl.aln_to_digital(tree, alns[r])
+            out[r] = pl.assign_read(tree, alns[r], seq,
+                                    max_nseed=args.max_nseed)
+    return out
+
+
+def agreement(best, host, spans, W, log_as) -> dict:
+    """The device's best placements against the host's ({row: placement}
+    of host_placements) on the rows both placed: the counts of the
+    module docstring's three rules, the same taxon (a node), and the
+    largest loglik gap; spans[r] is row r's aligned width in columns, of
+    which the device scores at most W."""
+    n_exact = n_match = n_ll = n_both = n_trunc = n_trunc_mism = 0
+    n_trunc_ll = n_taxon = 0
+    max_dll = 0.0
+    for r, h in host.items():
+        if best[r] is None or h is None:
             continue
         n_both += 1
-        span = alns[r].cs_end - alns[r].cs_start + 1
+        span = spans[r]
         trunc = span > W       # the device clamps the region to W cols
         n_trunc += int(trunc)
-        ulp = abs(host.loglik) * 2.0 ** -23
-        dll = abs(host.loglik - best[r].loglik)
+        ulp = abs(h.loglik) * 2.0 ** -23
+        dll = abs(h.loglik - best[r].loglik)
         max_dll = max(max_dll, dll)
         n_ll += int(dll <= 8 * ulp)
         n_trunc_ll += int(trunc and dll <= 8 * ulp)
+        n_taxon += int(best[r].a_node == h.a_node)
         if dll > 8 * ulp:
             log(f"{log_as} loglik apart r{r}: dev {best[r].loglik:.1f} "
-                f"host {host.loglik:.1f} span {span}"
+                f"host {h.loglik:.1f} span {span}"
                 + (" TRUNCATED" if trunc else ""))
-        if best[r].c_node == host.c_node:
+        if best[r].c_node == h.c_node:
             n_exact += 1
             n_match += 1
         else:
             # the synthetic tree's random leaves make window logliks
             # large; candidates within a few f32 ulps of each other flip
             # between the device's and the host's summation orders
-            if host.loglik - best[r].loglik <= 8 * ulp:
+            if h.loglik - best[r].loglik <= 8 * ulp:
                 n_match += 1
             else:
                 n_trunc_mism += int(trunc)
                 log(f"{log_as} mismatch r{r}: dev {best[r].c_node} "
-                    f"(ll {best[r].loglik:.1f}) host {host.c_node} "
-                    f"(ll {host.loglik:.1f}) span {span}"
+                    f"(ll {best[r].loglik:.1f}) host {h.c_node} "
+                    f"(ll {h.loglik:.1f}) span {span}"
                     + (" TRUNCATED" if trunc else ""))
     return {"reads": int(n_both), "cnode_exact": int(n_exact),
             "cnode_match": int(n_match), "loglik_match": int(n_ll),
+            "taxon_match": int(n_taxon),
             "max_abs_dloglik": float(max_dll),
             "span_gt_W": int(n_trunc), "mism_span_gt_W": int(n_trunc_mism),
             "loglik_match_span_gt_W": int(n_trunc_ll)}
+
+
+def aln_span(aln) -> int:
+    return aln.cs_end - aln.cs_start + 1
+
+
+def host_agreement(pl, tree, alns, best, rows, W, args, log_as):
+    """The device's best placements of `rows` against the exact host SEP
+    path on the same alignments (agreement's counts)."""
+    return agreement(best, host_placements(pl, tree, alns, best, rows,
+                                           args),
+                     [aln_span(a) for a in alns], W, log_as)
 
 
 def parity(pl, aligner, csfm, tree, placer, reads, leaf_ids, args, GLOBAL):
@@ -207,6 +246,355 @@ def out_of_window(alns, s_lo, Ws, W) -> list[int]:
         a.cs_start - 1, a.cs_end - 1, s_lo, Ws, W)]
 
 
+# ---------------------------------------------------------------------------
+# --paired: BASELINE config #4, 2 x 250 bp mates through the CLI's batch loop
+# ---------------------------------------------------------------------------
+
+def simulate_pairs(tree, n, s_lo, s_hi, read_len, rng, mean, sd):
+    """[n] read pairs of 2 x read_len bases from leaf fragments inside CS
+    columns [s_lo, s_hi).  A fragment is round(N(mean, sd^2)) columns of
+    one leaf (the reference sim's fragment size, in columns), its gaps
+    dropped and 2% of its bases substituted as simulate_window_reads
+    does; the forward mate is its first read_len bases, the reverse mate
+    the reverse complement of its last read_len.  Returns (fwd, rev,
+    cols [n, 2] 0-based first and last column of the fragment's bases,
+    leaf_ids)."""
+    from hmmufotu_tpu_torch.alphabet import DNA
+    from hmmufotu_tpu_torch.seq import PrimarySeq
+    leaves = np.nonzero(tree.has_seq)[0]
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    fwd, rev = [], []
+    cols = np.zeros((n, 2), np.int64)
+    leaf_ids = np.zeros(n, np.int64)
+    for r in range(n):
+        while True:
+            u = int(leaves[rng.integers(len(leaves))])
+            ln = int(round(rng.normal(mean, sd)))
+            ln = min(max(ln, read_len), s_hi - s_lo)
+            c0 = s_lo + int(rng.integers(0, s_hi - s_lo - ln + 1))
+            codes = tree.seqs[u, c0:c0 + ln]
+            pos = np.nonzero(codes >= 0)[0]
+            if len(pos) >= read_len:
+                break
+        piece = codes[pos].copy()
+        mut = rng.random(len(piece)) < 0.02
+        piece[mut] = rng.integers(0, 4, int(mut.sum()), dtype=np.int8)
+        frag = acgt[piece].tobytes().decode()
+        cols[r] = c0 + pos[0], c0 + pos[-1]
+        leaf_ids[r] = u
+        desc = f"leaf={u};csStart={cols[r, 0]};csEnd={cols[r, 1]};"
+        fwd.append(PrimarySeq(f"p{r}", frag[:read_len], desc))
+        rev.append(PrimarySeq(f"p{r}", DNA.revcom(frag[-read_len:]), desc))
+    return fwd, rev, cols, leaf_ids
+
+
+def clip_to_device_window(aln, W: int):
+    """The merged alignment as the device placer scores it: a copy whose
+    string is pad '.' outside the 0-based columns [start, min(end,
+    start + W - 1)], with cs_end set to match (DevicePlacer.dispatch_win
+    clamps each read's end so).  An alignment of at most W columns, or
+    an invalid one, is returned as it is."""
+    import copy
+    if not aln.is_valid() or aln_span(aln) <= W:
+        return aln
+    st = aln.cs_start - 1
+    en = st + W - 1
+    out = copy.copy(aln)
+    out.align = ("." * st + aln.align[st:en + 1]
+                 + "." * (len(aln.align) - en - 1))
+    out.cs_end = en + 1
+    return out
+
+
+class LoopClock:
+    """Host clocks of the CLI's batch loop, from wrappers of the pipeline
+    functions it calls (the loop itself is not touched): the seed search
+    (batch_find_seed_vpaths), the alignment of the reads and of the mates
+    (align_reads, the seed search in it), the orientation test and merge
+    (from the mates' alignment to the placement call), the placement
+    (assign_batch_device, results on the host) and the TSV rows (from the
+    placement to the next batch's alignment, or the pass's end).  Each
+    placement call's merged alignments and best placements are kept in
+    `calls`."""
+
+    KEYS = ("seed_search", "align", "merge_orient", "placement", "tsv")
+
+    def __init__(self, pl):
+        self.pl = pl
+        self.orig = {k: getattr(pl, k) for k in (
+            "batch_find_seed_vpaths", "align_reads", "assign_batch_device")}
+        self.s = dict.fromkeys(self.KEYS, 0.0)
+        self.after_align = self.after_place = None
+        self.calls = []
+
+    def __enter__(self):
+        pl, orig, s = self.pl, self.orig, self.s
+
+        def seed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return orig["batch_find_seed_vpaths"](*a, **kw)
+            finally:
+                s["seed_search"] += time.perf_counter() - t
+
+        def align(*a, **kw):
+            t = time.perf_counter()
+            if self.after_place is not None:
+                s["tsv"] += t - self.after_place
+                self.after_place = None
+            out = orig["align_reads"](*a, **kw)
+            self.after_align = time.perf_counter()
+            s["align"] += self.after_align - t
+            return out
+
+        def place(tree, placer, alns, *a, **kw):
+            t = time.perf_counter()
+            s["merge_orient"] += t - self.after_align
+            best = orig["assign_batch_device"](tree, placer, alns, *a, **kw)
+            self.after_place = time.perf_counter()
+            s["placement"] += self.after_place - t
+            self.calls.append((list(alns), best))
+            return best
+
+        pl.batch_find_seed_vpaths = seed
+        pl.align_reads = align
+        pl.assign_batch_device = place
+        return self
+
+    def end_pass(self):
+        if self.after_place is not None:
+            self.s["tsv"] += time.perf_counter() - self.after_place
+            self.after_place = None
+
+    def reset(self):
+        self.s.update(dict.fromkeys(self.KEYS, 0.0))
+        self.calls = []
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.pl, k, fn)
+
+
+class ShardClock:
+    """Per-card device time of the placement: CUDA events on the current
+    stream of each call's card around every place_batch_device (a
+    sharded batch calls it once a shard, each on its shard's card), and
+    the host seconds each call took to enqueue.  Events on different
+    cards cannot be compared, so whether the shards overlap shows from
+    the sum of the cards' busy time against the placement's host time."""
+
+    def __init__(self, cuda: bool):
+        from hmmufotu_tpu_torch.phylo import placement
+        self.mod, self.cuda = placement, cuda
+        self.orig = placement.place_batch_device
+        self.events, self.enqueue_s = {}, {}
+
+    def __enter__(self):
+        import torch
+
+        def wrapped(dt, seq_win, *a, **kw):
+            d = seq_win.device
+            key = str(d)
+            ev = None
+            if self.cuda:
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record(torch.cuda.current_stream(d))
+            t = time.perf_counter()
+            out = self.orig(dt, seq_win, *a, **kw)
+            self.enqueue_s[key] = self.enqueue_s.get(key, 0.0) \
+                + time.perf_counter() - t
+            if ev is not None:
+                ev[1].record(torch.cuda.current_stream(d))
+                self.events.setdefault(key, []).append(ev)
+            return out
+
+        self.mod.place_batch_device = wrapped
+        return self
+
+    def busy_ms(self) -> dict:
+        """{card: ms between each call's two events, summed}; waits for
+        the cards."""
+        import torch
+        out = {}
+        for key, evs in self.events.items():
+            torch.cuda.synchronize(torch.device(key))
+            out[key] = sum(a.elapsed_time(b) for a, b in evs)
+        return out
+
+    def reset(self):
+        self.events, self.enqueue_s = {}, {}
+
+    def __exit__(self, *exc):
+        self.mod.place_batch_device = self.orig
+
+
+def placement_rows(calls) -> tuple[list, list]:
+    """(merged alignments, best placements) of a pass, in pair order."""
+    alns, best = [], []
+    for a, b in calls:
+        alns.extend(a)
+        best.extend(b)
+    return alns, best
+
+
+def exact_rows(best) -> list[str]:
+    """Each best placement's fields but its window, exactly (repr
+    round-trips a float).  The window's end is left out: a placement made
+    over a mesh carries the end clamped to W columns, one made without it
+    the aligned end, in both packages (pipeline.assign_batch_device), and
+    the TSV prints neither."""
+    return [repr(None if b is None else sorted(
+        (k, v) for k, v in vars(b).items() if k not in ("start", "end")))
+        for b in best]
+
+
+def paired_run(args, res, pl, tree, csfm, aligner, placer, dev, fwd, rev):
+    """BASELINE config #4: the pairs through the assign CLI's own batch
+    loop (cli.assign.batch_loop, the path of `assign DB r1 r2`), a
+    warm-up of one batch and --repeat timed passes; with --mesh the same
+    passes over make_mesh(), rows held bit for bit against the passes
+    without it.  Fills `res`; returns the gate names for parity."""
+    import io
+    import logging
+    import torch
+    from hmmufotu_tpu_torch.cli.assign import batch_loop, build_parser
+    from hmmufotu_tpu_torch.hmm import GLOBAL
+    from hmmufotu_tpu_torch.hmm.viterbi import TIMING
+    cuda = dev.type == "cuda"
+    cli = build_parser().parse_args(
+        ["db", "r1.fa", "r2.fa", "-b", str(args.batch), "-N",
+         str(args.max_nseed)])
+    # one warning a badly oriented pair: counted from the rows instead
+    logging.getLogger("hmmufotu_tpu_torch.cli.assign").setLevel(
+        logging.ERROR)
+    n = len(fwd)
+    W = placer.W
+
+    def one_pass(f, r, mesh=None):
+        # the placement's results reach the host inside the loop, so only
+        # the aligner's card may still be busy at its end
+        out, chi = io.StringIO(), io.StringIO()
+        clock.reset()
+        t0 = time.perf_counter()
+        batch_loop(cli, aligner, csfm, tree, placer, f, r, GLOBAL, None,
+                   out, chi, None, mesh)
+        clock.end_pass()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0, out.getvalue().splitlines(),
+                chi.getvalue().splitlines())
+
+    def timed(label, mesh=None):
+        runs, stages, busy, enq = [], [], [], []
+        TIMING.clear()
+        for k in range(args.repeat):
+            log(f"{label} pass {k + 1} of {args.repeat}...")
+            shards.reset()
+            dt, rows, chi = one_pass(fwd, rev, mesh)
+            runs.append(n / dt)
+            stages.append(dict(clock.s))
+            if cuda:
+                busy.append(shards.busy_ms())
+            enq.append(dict(shards.enqueue_s))
+            log(f"  {n / dt:.1f} pairs/s")
+        per = lambda d: {k: float(np.mean([x[k] for x in d])) for k in d[0]}
+        out = {"pairs_per_s_runs": runs,
+               "pairs_per_s": float(np.median(runs)),
+               "pairs_per_s_spread": [min(runs), max(runs)],
+               "mates_per_s": 2 * float(np.median(runs)),
+               "stages_s": per(stages),
+               "align_substages_s": {k: v / args.repeat
+                                     for k, v in TIMING.items()},
+               "placement_enqueue_s": per(enq),
+               "card_busy_ms": per(busy) if busy else None}
+        if busy:
+            out["busy_over_placement"] = (
+                sum(out["card_busy_ms"].values()) / 1e3
+                / out["stages_s"]["placement"])
+        return out, rows, chi, placement_rows(clock.calls)
+
+    os.environ["HMMUFOTU_TIMING"] = "1"
+    with LoopClock(pl) as clock, ShardClock(cuda) as shards:
+        t0 = time.perf_counter()
+        log("warm-up...")
+        one_pass(fwd[:args.batch], rev[:args.batch])
+        res["t_compile_s"] = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        got, rows, chi, (alns, best) = timed("timed")
+        res.update(got)
+        res["device_peak_gb"] = device_peak_gb(dev)
+        res["db_resident_gb"] = db_resident_gb(placer)
+        if args.profile:
+            k2 = 2 * args.batch
+            res["profile"] = profile_window(
+                lambda: one_pass(fwd[:k2], rev[:k2]), args.profile,
+                dev)
+        if args.mesh:
+            from hmmufotu_tpu_torch.parallel import make_mesh
+            mesh = make_mesh(device=dev.type)
+            t0 = time.perf_counter()
+            log(f"replicas of the tree on {mesh.size} shards...")
+            for d in mesh.devices:
+                placer.on_device(d)
+                if cuda:
+                    torch.cuda.synchronize(d)
+            res["mesh_shards"] = mesh.size
+            res["mesh_devices"] = sorted({str(d) for d in mesh.devices})
+            res["t_replicas_s"] = time.perf_counter() - t0
+            one_pass(fwd[:args.batch], rev[:args.batch], mesh)
+            if cuda:
+                for d in set(mesh.devices):
+                    torch.cuda.reset_peak_memory_stats(d)
+            m_got, m_rows, m_chi, (m_alns, m_best) = timed("mesh", mesh)
+            res.update({"mesh_" + k: v for k, v in m_got.items()})
+            if cuda:
+                res["mesh_device_peak_gb"] = {
+                    str(d): device_peak_gb(d) for d in set(mesh.devices)}
+            res["mesh_rows_equal"] = (m_rows == rows and m_chi == chi
+                                      and exact_rows(m_best)
+                                      == exact_rows(best))
+    os.environ.pop("HMMUFOTU_TIMING", None)
+
+    spans = np.array([aln_span(a) if a.is_valid() else 0 for a in alns])
+    ok = spans[spans > 0]
+    res["pairs"] = n
+    res["pairs_merged"] = len(rows)
+    res["pairs_badly_oriented"] = len(chi)
+    res["pairs_placed"] = int(sum(b is not None for b in best))
+    res["merged_span_percentiles"] = dict(zip(
+        ("min", "p5", "p25", "p50", "p75", "p95", "max"),
+        (np.percentile(ok, [0, 5, 25, 50, 75, 95, 100]).tolist()
+         if len(ok) else [None] * 7)))
+    res["merged_wider_than_W"] = int((ok > W).sum())
+    res["merged_wider_than_W_share"] = float((ok > W).mean()) \
+        if len(ok) else None
+
+    if not min(args.parity, n):
+        return []
+    # the first --parity pairs against the exact host SEP path: on the
+    # merged alignment clipped to the device's window (the reference
+    # package's semantics, gated), and on the whole merged alignment
+    # (the clamp's cost, reported)
+    log("parity...")
+    t0 = time.perf_counter()
+    P = range(min(args.parity, n))
+    clipped = [clip_to_device_window(a, W) for a in alns]
+    host_clip = host_placements(pl, tree, clipped, best, P, args)
+    wide = [r for r in P if spans[r] > W]
+    narrow = [r for r in host_clip if spans[r] <= W]
+    host_wide = host_placements(pl, tree, alns, best, wide, args)
+    for tag, host in (("parity_clip_", host_clip),
+                      ("parity_full_narrow_",
+                       {r: host_clip[r] for r in narrow}),
+                      ("parity_full_wide_", host_wide)):
+        got = agreement(best, host, spans, W, tag[:-1])
+        res.update({tag + k: v for k, v in got.items()})
+    res["t_parity_s"] = time.perf_counter() - t0
+    return ["parity_clip_"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--leaves", type=int, default=75000)
@@ -241,7 +629,21 @@ def main(argv=None):
                          "messages on the device (the assign CLI's "
                          "default placer); --span then only bounds the "
                          "columns the reads come from")
+    ap.add_argument("--paired", action="store_true",
+                    help="BASELINE config #4: --reads pairs of 2 x "
+                         "--read-len mates through the assign CLI's batch "
+                         "loop, the whole tree on the device (implies "
+                         "--whole-tree)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="with --paired: the passes again over "
+                         "make_mesh() (every local card; eight CPU shards "
+                         "with --device cpu), rows held bit for bit "
+                         "against those without it")
     args = ap.parse_args(argv)
+    if args.mesh and not args.paired:
+        ap.error("--mesh runs with --paired")
+    if args.paired:
+        args.whole_tree = True
 
     import torch
     from hmmufotu_tpu_torch import pipeline as pl
@@ -256,7 +658,7 @@ def main(argv=None):
            "mode": "end_to_end", "leaves": args.leaves,
            "length": args.length, "msg_dtype": args.msg_dtype,
            "batch": args.batch, "read_len": args.read_len,
-           "whole_tree": args.whole_tree}
+           "whole_tree": args.whole_tree, "paired": args.paired}
 
     # ---- tree + model (the construction of torch_scale_assign) ----------
     t0 = time.perf_counter()
@@ -284,9 +686,19 @@ def main(argv=None):
     # before infer_seq: reads come from leaf sequences only
     t0 = time.perf_counter()
     log("simulate reads...")
-    wins_full, _, _, leaf_ids = simulate_window_reads(
-        tree, args.reads, s_lo, s_lo + Ws, args.read_len, rng)
-    reads = ["".join("ACGT"[c] for c in row[row >= 0]) for row in wins_full]
+    if args.paired:
+        # the fragment sizes of the reference's read simulator
+        from hmmufotu_tpu_torch.cli.sim import (DEFAULT_MEAN_SIZE,
+                                                DEFAULT_SD_SIZE)
+        fwd, rev, _, _ = simulate_pairs(
+            tree, args.reads, s_lo, s_lo + Ws, args.read_len, rng,
+            DEFAULT_MEAN_SIZE, DEFAULT_SD_SIZE)
+        res["fragment_columns"] = [DEFAULT_MEAN_SIZE, DEFAULT_SD_SIZE]
+    else:
+        wins_full, _, _, leaf_ids = simulate_window_reads(
+            tree, args.reads, s_lo, s_lo + Ws, args.read_len, rng)
+        reads = ["".join("ACGT"[c] for c in row[row >= 0])
+                 for row in wins_full]
     res["t_simreads_s"] = time.perf_counter() - t0
 
     # ancestral sequences (the reference's build runs inferSeq, so the
@@ -311,6 +723,16 @@ def main(argv=None):
     if cuda:
         torch.cuda.synchronize(dev)
     res["t_stage_s"] = time.perf_counter() - t0
+
+    if args.paired:
+        gates = paired_run(args, res, pl, tree, csfm, aligner, placer, dev,
+                           fwd, rev)
+        res["peak_rss_gb"] = peak_rss_gb()
+        print(json.dumps(res))
+        ok = res.get("mesh_rows_equal", True) and all(
+            min(res[g + "cnode_match"], res[g + "loglik_match"])
+            >= 0.95 * res[g + "reads"] for g in gates)
+        return 0 if ok else 1
 
     # count the reads the exact host path places (out-of-window
     # alignments), and clock it and the seed search (host seconds; the

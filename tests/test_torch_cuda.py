@@ -650,11 +650,18 @@ def check_sharded_placement(db, mesh, monkeypatch):
 @pytest.mark.parametrize("flag", ["--mesh", "--mesh-tree"])
 def test_assign_mesh_across_cards(db_prefix, tmp_path, monkeypatch, flag):
     """assign with a mesh over every card of the host against the run
-    without a mesh: the same ids and alignments, and the same branch and
+    that gives its rows in the reference package: for --mesh the run
+    without a mesh; for --mesh-tree the same flag over as many CPU shards
+    as there are cards, since the tree-sharded placer of both packages
+    filters each shard's candidates against its own node block's best
+    estimate and can pick another branch than one device
+    (tests/test_torch_mesh_tree.py holds the CPU shards against the
+    reference).  The same ids and alignments, and the same branch and
     taxon with logliks within the placement tolerances on every row but
     at most one near tie (a differing branch whose loglik agrees within
     them); K2 and K3 launched on every card, each on that card's
     stream."""
+    from hmmufotu_tpu_torch import parallel
     from hmmufotu_tpu_torch.cli.assign import main
     from hmmufotu_tpu_torch.cli.sim import main as sim_main
     if torch.cuda.device_count() < 2:
@@ -662,13 +669,22 @@ def test_assign_mesh_across_cards(db_prefix, tmp_path, monkeypatch, flag):
     reads = str(tmp_path / "reads.fa")
     assert sim_main([db_prefix, reads, "-N", "48", "-S", "7",
                      "-l", "150"]) == 0
+    n_cards = torch.cuda.device_count()
+    cpu_mesh = lambda *a, **kw: parallel.sharding.make_mesh(
+        n_cards, device="cpu")
+    runs = [("plain", [], "cuda"), ("mesh", [flag], "cuda")]
+    if flag == "--mesh-tree":
+        runs[0] = ("plain", [flag], "cpu")
     rows, seen = {}, []
-    for tag, extra in (("plain", []), ("mesh", [flag])):
-        if extra:
-            seen = record_launches(monkeypatch)
-        out = tmp_path / f"{tag}.tsv"
-        assert main([db_prefix, reads, "-o", str(out), "-b", "16"]
-                    + extra) == 0
+    for tag, extra, device in runs:
+        with monkeypatch.context() as m:
+            if device == "cpu":
+                m.setattr(parallel, "make_mesh", cpu_mesh)
+            if tag == "mesh":
+                seen = record_launches(m)
+            out = tmp_path / f"{tag}.tsv"
+            assert main([db_prefix, reads, "-o", str(out), "-b", "16"]
+                        + extra, device=device) == 0
         rows[tag] = [line.rstrip("\n").split("\t") for line in open(out)
                      if not line.startswith("#")
                      and not line.startswith("id\t")]
