@@ -77,7 +77,16 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               counted from 0, pairs/s, merged pairs wider than W, device
               peak; the first 64 pairs through the CLI on the CPU, row for
               row (alignments equal, the synthetic DBs' near-tie rule) and
-              the same badly oriented pairs.
+              the same badly oriented pairs;
+ 14. otu      BASELINE config #5's path on the cli phase's DB files: a
+              second sample of 2,048 amplicon reads of the same region from
+              another community (scripts/torch_scale_sum.py's sampler)
+              through the assign CLI on the card, launches counted from 0;
+              the sum CLI once a host (the cli phase's TSV is host A, the
+              new one host B; -l -c -t) and merge -db -t; the merged table
+              against an independent count of the TSVs' rows by taxon, one
+              consensus record of 6,000 columns an OTU, the OTU tree naming
+              every OTU.
 
 Prints one `kernels` JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -118,6 +127,9 @@ N_CLI_READS = 2048      # its amplicon reads, one assign batch
 N_CLI_CPU_READS = 64    # the first of them in the CPU run
 N_CLI_PAIRS = 1024      # sim CLI pairs at its defaults on the [cli] DB
 N_CLI_CPU_PAIRS = 64    # the first of them in the CPU run
+N_OTU_READS = 2048      # the [otu] phase's second sample
+OTU_LEAVES = 1000       # its community's leaves
+OTU_SEED = 9            # its sampler's seed
 # the reference package's tolerances between its two evaluate engines
 # (tests/test_scale_eval.py): messages on finite entries, tree loglik
 EVAL_ATOL, EVAL_LL_RTOL = 0.05, 1e-5
@@ -1429,6 +1441,92 @@ def pe_cli_phase():
                              "disagrees with the CPU run")
 
 
+def otu_phase():
+    """BASELINE config #5's path (assign -> sum -> merge) on the DB files
+    the [cli] phase wrote: N_OTU_READS amplicon reads of the same region
+    from another community (torch_scale_sum.py's sampler: OTU_LEAVES
+    leaves with lognormal abundances, seed OTU_SEED) through the assign
+    CLI on the card, launches counted from 0; then the sum CLI once a
+    host with -l -c -t ([cli]'s default-placer TSV is host A, the new one
+    host B) and merge -db -t.  Gates of torch_scale_sum.py: the merged
+    table equals an independent count of the TSVs' rows by taxon, its
+    total the assigned rows; one consensus record of the alignment's
+    width an OTU of each host; the OTU tree names every merged OTU."""
+    import logging
+    import torch
+    from evolved_inputs import input_tree
+    from torch_scale_assign import site_window
+    from torch_scale_cli import LogStamps
+    from torch_scale_sum import (communities, otu_gates, sample_reads,
+                                 sum_argv, sum_outputs, write_sample)
+    from hmmufotu_tpu_torch.cli.merge import main as merge_main
+    from hmmufotu_tpu_torch.cli.sum import main as sum_main
+    d = os.path.join(WORK, "cli")
+    prefix = os.path.join(d, "db")
+    t = time.time()
+    tree = input_tree(d)
+    L = tree.cs_len
+    r0, Wr = site_window(L, RESIDENT_COLS)
+    region = (r0, r0 + Wr)
+    comm = communities(tree, 1, 0, OTU_LEAVES, OTU_SEED, region)[0]
+    reads, _ = sample_reads(tree, comm, N_OTU_READS, OTU_SEED, 1, region)
+    del tree
+    fa = write_sample(os.path.join(d, "s1.fasta"), 1, reads)
+    log(f"[otu] second sample: {N_OTU_READS} amplicon reads of columns "
+        f"[{r0}, {r0 + Wr}) from {len(comm)} leaves in "
+        f"{time.time() - t:.1f} s")
+    secs = {}
+    torch.cuda.synchronize()
+    stamps = LogStamps()
+    root = logging.getLogger()
+    root.addHandler(stamps)
+    cnt = reset_counters()
+    t = time.time()
+    try:
+        rows = cli_rows([prefix, fa], os.path.join(d, "s1.tsv"))
+        torch.cuda.synchronize()
+    finally:
+        root.removeHandler(stamps)
+    secs["assign"] = time.time() - t
+    launches = {k: cnt[k].n for k in MAIN_KERNELS}
+    loaded = [s for s, m in stamps.rows if m.startswith("Database loaded")]
+    done = [s for s, m in stamps.rows if m.startswith("Processed")]
+    stream_s = done[-1] - loaded[-1] if loaded and done else float("nan")
+    log(f"[otu] assign on the card: {len(rows)} reads in "
+        f"{secs['assign']:.2f} s (DB load and strand test included; "
+        f"{stream_s:.2f} s from 'Database loaded' to the last 'Processed': "
+        f"{N_OTU_READS / stream_s:.1f} reads/s); launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    tsvs = {"s0": os.path.join(d, "gpu0.tsv"), "s1": os.path.join(d,
+                                                                  "s1.tsv")}
+    outs = {}
+    for h, name in (("A", "s0"), ("B", "s1")):
+        outs[h] = sum_outputs(d, f"otu_{h}")
+        t = time.time()
+        if sum_main(sum_argv(prefix, {name: tsvs[name]}, outs[h])) != 0:
+            raise RuntimeError(f"sum of host {h} failed")
+        secs[f"sum_{h}"] = time.time() - t
+    merged, nwk = os.path.join(d, "otu_merged.tsv"), os.path.join(
+        d, "otu_merged.nwk")
+    t = time.time()
+    if merge_main([outs["A"]["-o"], outs["B"]["-o"], "-o", merged, "-db",
+                   prefix, "-t", nwk]) != 0:
+        raise RuntimeError("merge failed")
+    secs["merge"] = time.time() - t
+    gates = otu_gates(tsvs, {"s0": N_CLI_READS, "s1": N_OTU_READS}, outs,
+                      merged, nwk, L)
+    c = gates["count"]
+    log(f"[otu] OTUs: host A {gates['consensus']['A']['otus']}, host B "
+        f"{gates['consensus']['B']['otus']}, merged {c['merged_otus']} "
+        f"({c['merged_total_reads']} reads); CLI seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}; gates "
+        f"{json.dumps(gates)}")
+    if not gates["ok"]:
+        raise AssertionError("the OTU tables disagree with the TSVs: "
+                             f"{gates['fails']}")
+
+
 # ---------------------------------------------------------------------------
 # the parallel layer: meshes on the one card, two processes
 # ---------------------------------------------------------------------------
@@ -1941,6 +2039,13 @@ def main() -> int:
     log(f"[pe] 6,000-column phase took {time.time() - t:.1f} s")
 
     phase_s["pe_cli"] = lap()
+
+    # ---- 14. config #5's path: a second sample, sum, merge ----------------
+    t = time.time()
+    otu_phase()
+    log(f"[otu] phase took {time.time() - t:.1f} s")
+
+    phase_s["otu"] = lap()
 
     # ---- result ----------------------------------------------------------
     # launches and path_total_ms are those of the path that runs the

@@ -174,10 +174,75 @@ def clock(owner, name, clocks, key, sync=None, keep=None):
     setattr(owner, name, timed)
 
 
+def clock_iter(owner, name, clocks, key):
+    """Wrap the generator function owner.name so that the time spent
+    inside it (each step, not the caller's loop body) adds to
+    clocks[key]."""
+    fn = getattr(owner, name)
+
+    def timed(*a, **kw):
+        it = fn(*a, **kw)
+        while True:
+            t = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            finally:
+                clocks[key] = (clocks.get(key, 0.0)
+                               + time.perf_counter() - t)
+            yield item
+
+    setattr(owner, name, timed)
+
+
+def kernel_events():
+    """Count and time every launch of the main path's kernels (K1-K3)
+    with CUDA events on the launching stream, from 0.  Returns finish():
+    after the run, each kernel's launches and summed milliseconds."""
+    import torch
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    events = {}
+
+    def timed(key, mod, attr):
+        fn = getattr(mod, attr)
+        fn.launches.reset()
+        events[key] = []
+
+        def wrapper(*args, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*args, **kw)
+            e.record()
+            events[key].append((s, e))
+            return out
+        # the launcher counts through its module-level name
+        wrapper.launches = fn.launches
+        setattr(mod, attr, wrapper)
+        return fn.launches
+
+    counts = {"viterbi_traced": timed("viterbi_traced", cv,
+                                      "viterbi_traced_cuda"),
+              "est": timed("est", cp, "est_cuda"),
+              "sep_optimize": timed("sep_optimize", cp, "sep_cuda")}
+
+    def finish():
+        torch.cuda.synchronize()
+        return {"launches": {k: c.n for k, c in counts.items()},
+                "kernel_ms": {k: sum(s.elapsed_time(e) for s, e in ev)
+                              for k, ev in events.items()}}
+
+    return finish
+
+
 def child(spec: dict) -> int:
-    """One CLI run (spec["cli"]: build or assign) with its clocks; prints
-    one JSON line.  After assign, the parity of its first spec["parity"]
-    placements against the exact host path."""
+    """One CLI run (spec["cli"]: build, assign, sum or merge) with its
+    clocks; prints one JSON line.  After assign, the parity of its first
+    spec["parity"] placements against the exact host path; with
+    spec["kernels"] also each main-path kernel's launches and summed
+    CUDA-event milliseconds."""
     import torch
     from hmmufotu_tpu_torch._cuda import resolve_device
     dev = resolve_device(spec["device"])
@@ -188,6 +253,7 @@ def child(spec: dict) -> int:
     stamps = LogStamps()
     logging.getLogger().addHandler(stamps)
     clocks, held = {}, {}
+    kernels = None
     if spec["cli"] == "build":
         from hmmufotu_tpu_torch.cli.build import main
         from hmmufotu_tpu_torch.hmm import ProfileHMM
@@ -199,6 +265,27 @@ def child(spec: dict) -> int:
                                  (ProfileHMM, "to_hmmer_file", ".hmm"),
                                  (PTUnrooted, "save", ".ptu.npz")):
             clock(owner, name, clocks, "save" + key)
+    elif spec["cli"] in ("sum", "merge"):
+        # host tools: they take no device
+        from hmmufotu_tpu_torch.alphabet import DNA
+        from hmmufotu_tpu_torch.cli import merge, sum as sum_cli
+        from hmmufotu_tpu_torch.db import Database
+        from hmmufotu_tpu_torch.otu import OTUObserved, OTUTable
+        from hmmufotu_tpu_torch.phylo import PTUnrooted
+        clock(Database, "load", clocks, "load_s")
+        clock(PTUnrooted, "to_newick", clocks, "tree_s")
+        if spec["cli"] == "sum":
+            main = sum_cli.main
+            clock_iter(sum_cli, "parse_assignment_tsv", clocks, "parse_s")
+            clock(DNA, "encode_upper", clocks, "encode_s")
+            clock(OTUObserved, "add_seq", clocks, "accumulate_s")
+            clock(OTUTable, "add_otu", clocks, "table_s")
+            clock(OTUTable, "save_table", clocks, "table_s")
+            clock(PTUnrooted, "infer_post_cs", clocks, "consensus_s")
+        else:
+            main = merge.main
+            clock(OTUTable, "load_table", clocks, "tables_load_s")
+            clock(OTUTable, "__iadd__", clocks, "tables_add_s")
     else:
         from hmmufotu_tpu_torch import pipeline as pl
         from hmmufotu_tpu_torch.cli import assign
@@ -219,12 +306,17 @@ def child(spec: dict) -> int:
                 yield alns, best
 
         pl.assign_stream = recording
-    if sync:
+        if spec.get("kernels") and dev.type == "cuda":
+            kernels = kernel_events()
+    if sync and spec["cli"] in ("build", "assign"):
         torch.cuda.reset_peak_memory_stats(dev)
-    rc = main(spec["argv"], device=spec["device"])
+    rc = (main(spec["argv"]) if spec["cli"] in ("sum", "merge")
+          else main(spec["argv"], device=spec["device"]))
     out = {"rc": rc, "peak_rss_gb": peak_rss_gb(),
            "device_peak_gb": device_peak_gb(dev),
            "clocks": clocks, "stamps": stamps.rows}
+    if kernels:
+        out.update(kernels())
     if spec["cli"] == "assign" and rc == 0 and P:
         out.update(parity(pl, held["db"].ptu, seen, spec["tsv"]))
     print(json.dumps(out), flush=True)
@@ -252,11 +344,14 @@ def parity(pl, tree, seen, tsv) -> dict:
     return out
 
 
-def run_child(cli: str, argv: list[str], args, tsv: str = "") -> dict:
+def run_child(cli: str, argv: list[str], args, tsv: str = "",
+              parity: int | None = None, kernels: bool = False) -> dict:
     """A CLI run in a process of its own; its JSON line, with its wall
-    seconds and exit code."""
+    seconds and exit code.  parity overrides args.parity; kernels asks
+    an assign run for its kernels' launches and milliseconds."""
     spec = {"cli": cli, "argv": argv, "device": args.device,
-            "parity": args.parity, "tsv": tsv}
+            "parity": args.parity if parity is None else parity,
+            "tsv": tsv, "kernels": kernels}
     log(f"{cli} {' '.join(argv)}")
     t = time.perf_counter()
     p = subprocess.run([sys.executable, os.path.abspath(__file__),
