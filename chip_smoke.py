@@ -86,7 +86,22 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               new one host B; -l -c -t) and merge -db -t; the merged table
               against an independent count of the TSVs' rows by taxon, one
               consensus record of 6,000 columns an OTU, the OTU tree naming
-              every OTU.
+              every OTU;
+ 15. oracle   BASELINE configs #1-#2's correctness target: the independent
+              f64 oracle's goldens (tests/golden_*.tsv) through the port's
+              build, sim, assign (on the card) and jplace CLIs, by
+              tests/test_pipeline.py TestGoldenCategories' checks (40 of 40
+              taxa with branches in the tie sets; 20 of 20 jplace edges,
+              likelihoods and lengths); 64 JC69 reads and 16 GTR+dGamma4
+              pairs through the port on the card against the oracle
+              (tests/oracle/, one process a core), by
+              scripts/torch_run_parity.py's rules; launches counted;
+ 16. flags    the assign CLI on the card and on the CPU with each of nine
+              flag sets (tests/test_torch_cli_flags.py's eight and -C
+              --ref-rank) on its 24 fixture reads, then on 64 reads of each
+              substitution model's DB (JC69, K80, F81, HKY85, TN93, GTR,
+              GTR -V): rows by that test's rules (-C byte-equal), K1-K3
+              launches of each card run.
 
 Prints one `kernels` JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -130,6 +145,17 @@ N_CLI_CPU_PAIRS = 64    # the first of them in the CPU run
 N_OTU_READS = 2048      # the [otu] phase's second sample
 OTU_LEAVES = 1000       # its community's leaves
 OTU_SEED = 9            # its sampler's seed
+N_ORACLE_SE = 64        # [oracle]: JC69 single-end reads (seed 11)
+N_ORACLE_PE = 16        # GTR+dGamma4 pairs (seed 13)
+N_ORACLE_HOST = 16      # of the single-end reads also placed on the host
+N_FLAG_READS = 24       # [flags]: tests/test_torch_cli_flags.py's reads
+N_MODEL_READS = 64      # reads a substitution model
+FLAG_SETS = [["--opt-k", "4"], ["--ref-rank"], ["--ML"],
+             ["--resident-window", "700"], ["--msg-bf16"], ["--align-only"],
+             ["-d", "0.05", "-H", "0.5"], ["--prior", "height"],
+             ["-C", "--ref-rank"]]
+MODEL_SETS = [("JC69", ()), ("K80", ()), ("F81", ()), ("HKY85", ()),
+              ("TN93", ()), ("GTR", ()), ("GTR", ("-V",))]
 # the reference package's tolerances between its two evaluate engines
 # (tests/test_scale_eval.py): messages on finite entries, tree loglik
 EVAL_ATOL, EVAL_LL_RTOL = 0.05, 1e-5
@@ -1749,6 +1775,196 @@ def parallel_phase(fx, fx_reads, sdb, s_reads):
 
 
 # ---------------------------------------------------------------------------
+# BASELINE configs #1-#2: the independent oracle, assign's flags, models
+# ---------------------------------------------------------------------------
+
+def oracle_phase():
+    """The oracle's goldens through the port's build, sim, assign (on the
+    card) and jplace CLIs, by TestGoldenCategories' checks; then
+    N_ORACLE_SE JC69 reads and N_ORACLE_PE GTR+dGamma4 pairs through the
+    port on the card against the independent f64 oracle (tests/oracle/,
+    in a process a core), by scripts/torch_run_parity.py's rules and
+    exit rules.  K1-K3 launches counted from 0 for each run."""
+    import torch
+    import torch_run_parity as trp
+    d = os.path.join(WORK, "oracle")
+    for name in ("assign", "jplace"):
+        cnt = reset_counters()
+        t = time.time()
+        r = getattr(trp, f"golden_{name}")(os.path.join(d, name), "cuda")
+        torch.cuda.synchronize()
+        launches = {k: cnt[k].n for k in MAIN_KERNELS}
+        log(f"[oracle] golden {name}: {r['n'] - len(r['failures'])}/"
+            f"{r['n']} of the oracle's reads agree, {r['rows']} rows, in "
+            f"{time.time() - t:.1f} s (build, sim, assign); launches "
+            f"{launches}; failures {r['failures']}")
+        if r["failures"] or r["rows"] != r["n"] \
+                or min(launches.values()) <= 0:
+            raise AssertionError(f"golden {name} disagrees")
+    for model, dgamma, paired, tag, n, seed in (
+            ("JC69", False, False, "JC69-SE", N_ORACLE_SE, 11),
+            ("GTR", True, True, "GTR-dG4-PE", N_ORACLE_PE, 13)):
+        cnt = reset_counters()
+        s = trp.run_sweep(d, model, dgamma, n, seed, paired, tag, "cuda",
+                          os.cpu_count() or 1, host_n=N_ORACLE_HOST)
+        launches = {k: cnt[k].n for k in MAIN_KERNELS}
+        fails = trp.failures(s)
+        log(f"[oracle] {tag} against the f64 oracle: {json.dumps(s)}; "
+            f"launches {launches}; failures {fails}")
+        if fails or min(launches.values()) <= 0:
+            raise AssertionError(f"{tag} disagrees with the oracle")
+
+
+def build_in_processes(specs):
+    """The build CLI of each (prefix, sub-model, extra arguments) spec on
+    the fixture, each in a process of its own, all at once."""
+    procs = []
+    try:
+        for prefix, model, extra in specs:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "hmmufotu_tpu_torch.cli.build",
+                 os.path.join(FIXTURES, "70_otus.fasta"),
+                 os.path.join(FIXTURES, "70_otus.tree"), "-a",
+                 os.path.join(FIXTURES, "70_otus_taxonomy.txt"), "-n",
+                 prefix, "-s", model, *extra], cwd=REPO,
+                env=dict(os.environ, PYTHONPATH=REPO),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True))
+        errs = [(p.communicate(timeout=600)[1], p.returncode)
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (prefix, _, _), (err, rc) in zip(specs, errs):
+        if rc != 0:
+            raise RuntimeError(f"build {prefix} failed ({rc}):\n"
+                               f"{err[-3000:]}")
+
+
+def cpu_assign(argv):
+    """The assign CLI on the CPU in a pool worker, one torch thread."""
+    import torch
+    from hmmufotu_tpu_torch.cli.assign import main as assign_main
+    torch.set_num_threads(1)
+    return assign_main(argv, device="cpu")
+
+
+def flag_rows_agree(gpu, cpu, flags, n_reads):
+    """tests/test_torch_cli_flags.py's rules on two runs' (rows, chimera
+    rows): with -C both byte-equal; else the same ids, alignment columns
+    equal, every row's branch and taxon the same but at most one near tie
+    (logliks within LL_ATOL + LL_RTOL |ll|), at most two reads
+    unplaced; --align-only rows equal."""
+    (g_rows, g_chi), (c_rows, c_chi) = gpu, cpu
+    if "-C" in flags:
+        ok = (g_rows == c_rows and g_chi == c_chi
+              and len(g_rows) + len(g_chi) == n_reads)
+        return ok, dict(rows=len(g_rows), chimera_rows=len(g_chi),
+                        byte_equal=g_rows == c_rows and g_chi == c_chi)
+    n_aln = n_near = n_bad = 0
+    max_ll = 0.0
+    for g, c in zip(g_rows, c_rows):
+        n_aln += g[2:10] != c[2:10] or len(g) != len(c)
+        if "--align-only" in flags:
+            n_bad += g[10:] != c[10:]
+            continue
+        if c[10] != "-1":
+            dll = abs(float(g[15]) - float(c[15]))
+            n_bad += dll > LL_ATOL + LL_RTOL * abs(float(c[15]))
+            max_ll = max(max_ll, dll)
+        n_near += (g[10], g[12], g[13]) != (c[10], c[12], c[13])
+    placed = sum(r[10] != "-1" for r in g_rows)
+    ok = ([r[0] for r in g_rows] == [r[0] for r in c_rows]
+          and len(g_rows) == n_reads and g_chi == c_chi and n_aln == 0
+          and n_bad == 0 and n_near <= 1
+          and ("--align-only" in flags or placed >= n_reads - 2))
+    return ok, dict(rows=len(g_rows), aln_mismatch=n_aln, placed=placed,
+                    near_ties=n_near, bad=n_bad, max_loglik_diff=max_ll)
+
+
+def flags_phase():
+    """assign's flags and the substitution models on the card against the
+    CPU.  The fixture's GTR DB and the other models' DBs come from the
+    build CLI, each in its own process, all at once.  The N_FLAG_READS
+    reads of tests/test_torch_cli_flags.py (seed 4) run with each of
+    FLAG_SETS, then N_MODEL_READS reads (seed 5) on each model's DB
+    without flags; every run with -S 0 -s 1 through the assign CLI on
+    the card (launches counted from 0) and on the CPU (pool workers, at
+    the same time), the rows by flag_rows_agree."""
+    import multiprocessing
+    import torch
+    from evolved_inputs import simulate_reads, write_fasta
+    from hmmufotu_tpu_torch.db import Database
+    d = os.path.join(WORK, "flags")
+    os.makedirs(d, exist_ok=True)
+    t = time.time()
+    dbs = {(m, tuple(x)): os.path.join(d, f"70_otus_{m}{''.join(x)}")
+           for m, x in MODEL_SETS}
+    build_in_processes([(p, m, list(x)) for (m, x), p in dbs.items()])
+    t_build = time.time() - t
+    gtr = dbs[("GTR", ())]
+    runs = []                   # (label, flags, db, reads, n)
+    fa = write_fasta(os.path.join(d, "flags.fasta"), simulate_reads(
+        Database.load(gtr).ptu, np.random.default_rng(4), N_FLAG_READS))
+    runs += [(" ".join(f), f, gtr, fa, N_FLAG_READS) for f in FLAG_SETS]
+    for (m, x), p in dbs.items():
+        fa = write_fasta(p + "_reads.fasta", simulate_reads(
+            Database.load(p).ptu, np.random.default_rng(5), N_MODEL_READS))
+        runs.append((f"-s {m}{' ' + ' '.join(x) if x else ''}", [], p, fa,
+                     N_MODEL_READS))
+
+    def argv(i, tag):
+        _, flags, db, fa, _ = runs[i]
+        return [db, fa, "-S", "0", "-s", "1", *flags, "-o",
+                os.path.join(d, f"{i}_{tag}.tsv"), "--chimera-out",
+                os.path.join(d, f"{i}_{tag}_chi.tsv")]
+
+    def rows(i, tag):
+        return (read_rows(os.path.join(d, f"{i}_{tag}.tsv")),
+                read_rows(os.path.join(d, f"{i}_{tag}_chi.tsv")))
+
+    from hmmufotu_tpu_torch.cli.assign import main as assign_main
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(len(runs), max(1, (os.cpu_count() or 2) - 1))) as pool:
+        t = time.time()
+        cpu_rcs = pool.map_async(cpu_assign, [argv(i, "cpu")
+                                              for i in range(len(runs))])
+        failed = []
+        for i, (label, flags, _, _, n) in enumerate(runs):
+            cnt = reset_counters()
+            t1 = time.time()
+            if assign_main(argv(i, "gpu"), device="cuda") != 0:
+                raise AssertionError(f"assign {label} failed on the card")
+            torch.cuda.synchronize()
+            launches = {k: cnt[k].n for k in MAIN_KERNELS}
+            runs[i] += (launches, time.time() - t1)
+        t_gpu = time.time() - t
+        rcs = cpu_rcs.get(timeout=900)
+        t_cpu = time.time() - t
+    if any(rcs):
+        raise AssertionError(f"assign on the CPU failed: {rcs}")
+    for i, (label, flags, _, _, n, launches, dt) in enumerate(runs):
+        ok, stats = flag_rows_agree(rows(i, "gpu"), rows(i, "cpu"), flags,
+                                    n)
+        need = ["viterbi_traced"] if "-C" in flags \
+            or "--align-only" in flags else list(MAIN_KERNELS)
+        ok = ok and all(launches[k] > 0 for k in need)
+        log(f"[flags] {label}: {n} reads on the card in {dt:.2f} s, "
+            f"launches {launches}; vs the CPU: {json.dumps(stats)}"
+            f"{'' if ok else ' FAILED'}")
+        if not ok:
+            failed.append(label)
+    log(f"[flags] {len(FLAG_SETS)} flag sets and {len(MODEL_SETS)} model "
+        f"DBs: builds {t_build:.1f} s (one process each, at once), card "
+        f"runs {t_gpu:.1f} s, CPU runs done {t_cpu:.1f} s after they "
+        f"began (pool workers beside the card runs); failed {failed}")
+    if failed:
+        raise AssertionError(f"card and CPU disagree: {failed}")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2046,6 +2262,20 @@ def main() -> int:
     log(f"[otu] phase took {time.time() - t:.1f} s")
 
     phase_s["otu"] = lap()
+
+    # ---- 15. configs #1-#2 against the independent f64 oracle -----------
+    t = time.time()
+    oracle_phase()
+    log(f"[oracle] phase took {time.time() - t:.1f} s")
+
+    phase_s["oracle"] = lap()
+
+    # ---- 16. assign's flags and the substitution models -------------------
+    t = time.time()
+    flags_phase()
+    log(f"[flags] phase took {time.time() - t:.1f} s")
+
+    phase_s["flags"] = lap()
 
     # ---- result ----------------------------------------------------------
     # launches and path_total_ms are those of the path that runs the

@@ -7,7 +7,11 @@ equal, and on every row the same branch and taxon with logliks within
 a row whose branch differs while both logliks agree within that
 tolerance.  At most one near tie a run (of 24 reads) is accepted; the
 two packages optimize in f32 with sites summed in different orders, so
-candidates whose logliks are closer than that may swap."""
+candidates whose logliks are closer than that may swap.  With -C the
+card only aligns and both packages place each read's segments on the
+host in f64, so the rows and the --chimera-out rows are byte-equal.
+tests/test_torch_cuda.py holds the card against the CPU by the same
+rules."""
 
 import pytest
 
@@ -32,21 +36,35 @@ def rows(path):
             if not line.startswith("#") and not line.startswith("id\t")]
 
 
-@pytest.mark.parametrize("flags", [
+FLAG_SETS = [
     ["--opt-k", "4"], ["--ref-rank"], ["--ML"], ["--resident-window", "700"],
     ["--msg-bf16"], ["--align-only"], ["-d", "0.05", "-H", "0.5"],
-    ["--prior", "height"]], ids=lambda f: "".join(f).lstrip("-"))
-def test_assign_flags_match_reference(db_prefix, reads_fa,  # noqa: F811
-                                      tmp_path, flags):
-    from hmmufotu_tpu.cli.assign import main as ref_main
-    from hmmufotu_tpu_torch.cli.assign import main
-    argv = [db_prefix, reads_fa, "-S", "0", "-s", "1"] + flags
-    ref, port = str(tmp_path / "ref.tsv"), str(tmp_path / "port.tsv")
-    assert ref_main(argv + ["-o", ref]) == 0
-    assert main(argv + ["-o", port], device="cpu") == 0
-    got, want = rows(port), rows(ref)
+    ["--prior", "height"], ["-C", "--ref-rank"]]
+
+
+def flag_id(flags):
+    return "".join(flags).lstrip("-")
+
+
+def run_assign(main, db, reads, flags, out, chi):
+    """assign -S 0 -s 1 with `flags` writing `out` (and `chi`, the
+    --chimera-out file, under -C); returns their body rows."""
+    argv = [db, reads, "-S", "0", "-s", "1"] + flags + ["-o", out]
+    if "-C" in flags:
+        argv += ["--chimera-out", chi]
+    assert main(argv) == 0
+    return rows(out), rows(chi) if "-C" in flags else []
+
+
+def assert_rows_agree(got, want, flags, n_reads=N_READS):
+    """got, want: (rows, chimera rows) of two runs with the same flags."""
+    (got, got_chi), (want, want_chi) = got, want
+    if "-C" in flags:
+        assert got == want and got_chi == want_chi
+        assert len(got) + len(got_chi) == n_reads
+        return
     assert [r[0] for r in got] == [r[0] for r in want]
-    assert len(got) == N_READS
+    assert len(got) == n_reads
     near_ties = 0
     for g, w in zip(got, want):
         assert g[2:10] == w[2:10], g[0]
@@ -61,4 +79,17 @@ def test_assign_flags_match_reference(db_prefix, reads_fa,  # noqa: F811
             near_ties += 1
     assert near_ties <= MAX_NEAR_TIES
     if "--align-only" not in flags:
-        assert sum(r[10] != "-1" for r in got) >= N_READS - 2
+        assert sum(r[10] != "-1" for r in got) >= n_reads - 2
+
+
+@pytest.mark.parametrize("flags", FLAG_SETS, ids=flag_id)
+def test_assign_flags_match_reference(db_prefix, reads_fa,  # noqa: F811
+                                      tmp_path, flags):
+    from hmmufotu_tpu.cli.assign import main as ref_main
+    from hmmufotu_tpu_torch.cli.assign import main
+    want = run_assign(ref_main, db_prefix, reads_fa, flags,
+                      str(tmp_path / "ref.tsv"), str(tmp_path / "ref_chi.tsv"))
+    got = run_assign(lambda a: main(a, device="cpu"), db_prefix, reads_fa,
+                     flags, str(tmp_path / "port.tsv"),
+                     str(tmp_path / "port_chi.tsv"))
+    assert_rows_agree(got, want, flags)

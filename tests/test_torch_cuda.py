@@ -14,20 +14,29 @@ kernels: the torch evaluate engine on the card against the numpy f64
 engine and its peak memory against its budget, paired-end assign on the
 card against the port's CPU run, and sharded placement on four shards of
 the card (and over every card of a host with several) against the
-single-device placement, each shard's kernels on its own card."""
+single-device placement, each shard's kernels on its own card.  BASELINE
+configs #1-#2 on the card: the independent oracle's goldens through the
+port's CLIs (tests/test_torch_golden.py's checks), and the assign CLI
+with each flag set of tests/test_torch_cli_flags.py and on each
+substitution model's DB against the port's CPU run, by that file's
+rules."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from test_torch_cli_flags import FLAG_SETS, assert_rows_agree, flag_id
 from test_torch_pipeline import simulate_reads
 from test_torch_place import (BRANCH_ATOL, LL_ATOL, LL_RTOL, est_args,
                               lane_inputs, model_inputs, port_lanes,
                               random_site_mask)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "scripts"))
 pytestmark = pytest.mark.cuda
 
 
@@ -704,3 +713,104 @@ def test_assign_mesh_across_cards(db_prefix, tmp_path, monkeypatch, flag):
                                              abs=LL_ATOL), g[0]
         near_ties += (g[10], g[12], g[13]) != (w[10], w[12], w[13])
     assert near_ties <= 1
+
+
+# ---------------------------------------------------------------------------
+# BASELINE configs #1-#2 on the card: the oracle's goldens, assign's
+# flags and the substitution models
+# ---------------------------------------------------------------------------
+
+def main_path_counters():
+    from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
+    from hmmufotu_tpu_torch.phylo import cuda_place as cp
+    return (cv.viterbi_traced_cuda.launches, cp.est_cuda.launches,
+            cp.sep_cuda.launches)
+
+
+@pytest.mark.parametrize("golden", ["assign", "jplace"])
+def test_goldens_on_card(cuda, tmp_path, golden):
+    """tests/golden_assign_categories.tsv and tests/golden_jplace_pe.tsv
+    (the independent oracle's) through the port's CLIs with assign on the
+    card, by tests/test_torch_golden.py's checks; K1-K3 launched."""
+    import torch_run_parity as trp
+    counters = main_path_counters()
+    n0 = [c.n for c in counters]
+    res = getattr(trp, f"golden_{golden}")(str(tmp_path), device="cuda")
+    assert res["failures"] == []
+    n = 40 if golden == "assign" else 20
+    assert res["n"] == n and res["rows"] == n
+    assert all(c.n > k for c, k in zip(counters, n0))
+
+
+def port_db(work, model, var=False):
+    """A 70_otus DB of `model` by the port's build CLI."""
+    from hmmufotu_tpu_torch.cli.build import main as build_main
+    prefix = os.path.join(work, f"70_otus_{model}{'_V' if var else ''}")
+    assert build_main([os.path.join(FIXTURES, "70_otus.fasta"),
+                       os.path.join(FIXTURES, "70_otus.tree"),
+                       "-a", os.path.join(FIXTURES, "70_otus_taxonomy.txt"),
+                       "-n", prefix, "-s", model]
+                      + (["-V"] if var else []), device="cpu") == 0
+    return prefix
+
+
+def reads_file(prefix, path, n, seed):
+    from hmmufotu_tpu_torch.db import Database
+    reads = simulate_reads(Database.load(prefix).ptu, n, seed=seed)
+    with open(path, "w") as fh:
+        fh.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(reads)))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def flags_inputs(cuda, tmp_path_factory):
+    """tests/test_torch_cli_flags.py's inputs on the port's own DB: GTR,
+    24 reads of seed 4."""
+    d = tmp_path_factory.mktemp("flags")
+    prefix = port_db(str(d), "GTR")
+    return prefix, reads_file(prefix, d / "reads.fasta", 24, 4)
+
+
+def card_and_cpu(prefix, reads, flags, tmp_path):
+    """The assign CLI with `flags` on the card, then on the CPU; returns
+    both runs' rows and the card run's K1-K3 launches."""
+    from hmmufotu_tpu_torch.cli.assign import main
+    from test_torch_cli_flags import run_assign
+    counters = main_path_counters()
+    n0 = [c.n for c in counters]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = run_assign(lambda a: main(a, device=dev), prefix, reads,
+                               flags, str(tmp_path / f"{dev}.tsv"),
+                               str(tmp_path / f"{dev}_chi.tsv"))
+        if dev == "cuda":
+            launches = [c.n - k for c, k in zip(counters, n0)]
+    return runs["cuda"], runs["cpu"], launches
+
+
+@pytest.mark.parametrize("flags", FLAG_SETS, ids=flag_id)
+def test_assign_flags_on_card_match_cpu(flags_inputs, tmp_path, flags):
+    """Each flag set of tests/test_torch_cli_flags.py (and -C --ref-rank)
+    on the card against the port's CPU run, by that file's rules; K1 on
+    every run, K2 and K3 wherever the card places."""
+    gpu, cpu, launches = card_and_cpu(*flags_inputs, flags, tmp_path)
+    assert_rows_agree(gpu, cpu, flags)
+    assert launches[0] > 0
+    if "-C" not in flags and "--align-only" not in flags:
+        assert min(launches) > 0, launches
+
+
+@pytest.mark.parametrize("model,var", [
+    ("JC69", False), ("K80", False), ("F81", False), ("HKY85", False),
+    ("TN93", False), ("GTR", False), ("GTR", True)],
+    ids=["JC69", "K80", "F81", "HKY85", "TN93", "GTR", "GTR-V"])
+def test_models_on_card_match_cpu(cuda, tmp_path, model, var):
+    """Each substitution model (GTR also with dGamma) on the card against
+    the port's CPU run: 64 reads through the assign CLI, K1-K3 launched,
+    the rows by tests/test_torch_cli_flags.py's rules (at most one near
+    tie)."""
+    prefix = port_db(str(tmp_path), model, var)
+    reads = reads_file(prefix, tmp_path / "reads.fasta", 64, 5)
+    gpu, cpu, launches = card_and_cpu(prefix, reads, [], tmp_path)
+    assert_rows_agree(gpu, cpu, [], n_reads=64)
+    assert min(launches) > 0, launches

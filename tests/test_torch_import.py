@@ -11,14 +11,17 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "hmmufotu_tpu_torch")
-# the port's gg_97-shape harnesses, and the generator of evolved inputs
-# that chip_smoke.py, torch_scale_cli.py and torch_scale_sum.py share
+# the port's gg_97-shape harnesses and its oracle parity sweep, and the
+# generator of evolved inputs that chip_smoke.py, torch_scale_cli.py and
+# torch_scale_sum.py share
 SCRIPTS = [os.path.join(REPO, "scripts", f"torch_scale_{n}.py")
-           for n in ("eval", "assign", "e2e", "cli", "sum")]
+           for n in ("eval", "assign", "e2e", "cli", "sum")] + [
+    os.path.join(REPO, "scripts", "torch_run_parity.py")]
 # the smallest command line of each harness
 SMALL_ARGV = {"eval": ["--leaves", "8"],
               "sum": ["--leaves", "8", "--length", "600",
-                      "--sample-reads", "4"]}
+                      "--sample-reads", "4"],
+              "run_parity": ["-n", "2", "--band-n", "2", "--jobs", "1"]}
 GENERATOR = os.path.join(REPO, "scripts", "evolved_inputs.py")
 
 IMPORT_ALL = r"""
@@ -94,13 +97,13 @@ print(len(sys.argv) - 1)
 
 
 def test_scale_scripts_load_without_jax():
-    """The five harnesses and the generator load with jax and the
+    """The six harnesses and the generator load with jax and the
     reference package blocked."""
     out = subprocess.run([sys.executable, "-c", LOAD_SCRIPTS] + SCRIPTS
                          + [GENERATOR], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "6"
+    assert out.stdout.strip() == str(len(SCRIPTS) + 1)
 
 
 @pytest.mark.parametrize("path", SCRIPTS,
@@ -114,7 +117,8 @@ def test_scale_scripts_refuse_cuda_without_a_card(monkeypatch, path):
         "card_check_" + os.path.basename(path)[:-3], path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    name = os.path.basename(path)[len("torch_scale_"):-3]
+    name = os.path.basename(path)[:-3].replace("torch_scale_", "") \
+        .replace("torch_", "")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         mod.main(SMALL_ARGV.get(name, ["--leaves", "8", "--length", "600",
                                        "--reads", "4"]))
