@@ -70,7 +70,13 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               2,048 amplicon reads: stage seconds, file sizes, launches,
               and the first 64 rows of each against a CPU run of the
               assign CLI;
- 13. pe       paired-end assign on the cli phase's DB files (no second
+ 13. gamma    BASELINE config #3's path at the cli phase's shape: the
+              build CLI with -V (dGamma4: the alpha estimate and a second
+              torch evaluate) on the cli phase's inputs, the assign CLI on
+              the card on its 2,048 amplicon reads, launches counted from
+              0, the loaded messages f32 and 4 rates on the placer, the
+              first 64 rows against a CPU run of the assign CLI;
+ 14. pe       paired-end assign on the cli phase's DB files (no second
               build): 1,024 pairs of 2 x 250 bp mates written by the
               port's sim CLI at its defaults (fragments of 500 +- 30
               columns) through the assign CLI on the card, launches
@@ -78,7 +84,7 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               peak; the first 64 pairs through the CLI on the CPU, row for
               row (alignments equal, the synthetic DBs' near-tie rule) and
               the same badly oriented pairs;
- 14. otu      BASELINE config #5's path on the cli phase's DB files: a
+ 15. otu      BASELINE config #5's path on the cli phase's DB files: a
               second sample of 2,048 amplicon reads of the same region from
               another community (scripts/torch_scale_sum.py's sampler)
               through the assign CLI on the card, launches counted from 0;
@@ -87,7 +93,7 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               against an independent count of the TSVs' rows by taxon, one
               consensus record of 6,000 columns an OTU, the OTU tree naming
               every OTU;
- 15. oracle   BASELINE configs #1-#2's correctness target: the independent
+ 16. oracle   BASELINE configs #1-#2's correctness target: the independent
               f64 oracle's goldens (tests/golden_*.tsv) through the port's
               build, sim, assign (on the card) and jplace CLIs, by
               tests/test_pipeline.py TestGoldenCategories' checks (40 of 40
@@ -96,7 +102,7 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               pairs through the port on the card against the oracle
               (tests/oracle/, one process a core), by
               scripts/torch_run_parity.py's rules; launches counted;
- 16. flags    the assign CLI on the card and on the CPU with each of nine
+ 17. flags    the assign CLI on the card and on the CPU with each of nine
               flag sets (tests/test_torch_cli_flags.py's eight and -C
               --ref-rank) on its 24 fixture reads, then on 64 reads of each
               substitution model's DB (JC69, K80, F81, HKY85, TN93, GTR,
@@ -1387,6 +1393,100 @@ def cli_phase():
                                  f"run")
 
 
+def gamma_phase():
+    """BASELINE config #3's path at the [cli] phase's shape: the build CLI
+    with -V (the dGamma4 rate mixture: a GTR evaluate, the alpha
+    estimate, a second evaluate; torch engine on the card) on the [cli]
+    phase's evolved inputs, then the assign CLI on the card with its
+    default flags on the same N_CLI_READS amplicon reads, launches
+    counted from 0; the loaded messages f32 (as the file stores them), 4
+    rates on the placer; the first N_CLI_CPU_READS rows against a CPU
+    run of the assign CLI (compare_rows, the synthetic DBs' near-tie
+    rule)."""
+    import logging
+    import torch
+    from evolved_inputs import FASTA, TAXONOMY, TREE
+    from torch_scale_cli import BUILD_STAGES, LogStamps, stage_seconds
+    from hmmufotu_tpu_torch.cli import setup_logging
+    from hmmufotu_tpu_torch.cli.build import main as build_main
+    from hmmufotu_tpu_torch.db import Database
+    from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
+    d = os.path.join(WORK, "cli")
+    fa, fa_cpu = (os.path.join(d, f) for f in ("amplicon.fasta",
+                                                "amplicon_cpu.fasta"))
+    prefix = os.path.join(d, "db_gamma")
+    setup_logging(1)
+    stamps = LogStamps()
+    root = logging.getLogger()
+    root.addHandler(stamps)
+    sweeps, patch = sweep_timer()
+    t = time.time()
+    try:
+        with patch:
+            rc = build_main([
+                os.path.join(d, FASTA), os.path.join(d, TREE), "-a",
+                os.path.join(d, TAXONOMY), "-n", prefix, "-s", "GTR", "-V",
+                "-k", "4", "--msg-dtype", "f32", "--eval-engine", "torch"])
+    finally:
+        root.removeHandler(stamps)
+    if rc != 0:
+        raise RuntimeError("build CLI -V failed")
+    stages = stage_seconds(stamps.rows, BUILD_STAGES[:4] + (
+        ("evaluate_alpha", "Estimated dGamma alpha"),
+        ("evaluate_dgamma", "Final tree log-likelihood")) + BUILD_STAGES[5:])
+    alpha = [m for _, m in stamps.rows if m.startswith("Estimated dGamma")]
+    log(f"[gamma] build CLI -V in {time.time() - t:.1f} s: "
+        f"{alpha[-1] if alpha else 'no alpha estimated'}; stage seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in stages.items()})}; "
+        f"evaluate sweeps {' + '.join(f'{x:.1f}' for x in sweeps)} s")
+    if not alpha or len(sweeps) != 2:
+        raise AssertionError("the build did not evaluate under dGamma4")
+    held = {}
+    load = vars(Database)["load"]           # the classmethod itself
+    bound, init = Database.load, DevicePlacer.__init__
+
+    def loading(path):
+        held["db"] = bound(path)
+        return held["db"]
+
+    def placing(placer, *a, **kw):
+        init(placer, *a, **kw)
+        held["placer"] = placer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cnt = reset_counters()
+    t = time.time()
+    Database.load = staticmethod(loading)
+    try:
+        with Patch((DevicePlacer, "__init__", placing)):
+            gpu = cli_rows([prefix, fa], os.path.join(d, "gamma_gpu.tsv"))
+    finally:
+        Database.load = load
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    launches = {k: cnt[k].n for k in MAIN_KERNELS}
+    msg_dtype = str(held["db"].ptu.msg_up.dtype)
+    rates = int(held["placer"].dt.rates.numel())
+    del held
+    log(f"[gamma] assign on the card: {len(gpu)} reads in {dt:.2f} s (DB "
+        f"load included); launches {launches}; loaded messages "
+        f"{msg_dtype}, {rates} rates on the placer; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if msg_dtype != "float32" or rates != 4:
+        raise AssertionError(f"loaded messages {msg_dtype}, {rates} rates")
+    t = time.time()
+    cpu = cli_rows([prefix, fa_cpu], os.path.join(d, "gamma_cpu.tsv"),
+                   "cpu")
+    ok, stats = compare_rows(gpu[:len(cpu)], cpu, 0.25)
+    log(f"[gamma] first {len(cpu)} rows vs the CPU run "
+        f"({time.time() - t:.1f} s): {json.dumps(stats)}")
+    if not ok or len(gpu) != N_CLI_READS:
+        raise AssertionError("assign -V DB disagrees with the CPU run")
+
+
 def pe_cli_phase():
     """Paired-end assign (BASELINE config #4's path) on the DB files the
     [cli] phase wrote: N_CLI_PAIRS pairs from the port's sim CLI at its
@@ -2249,28 +2349,35 @@ def main() -> int:
 
     phase_s["cli"] = lap()
 
-    # ---- 13. paired-end assign on the 6,000-column DB files --------------
+    # ---- 13. config #3's path: a GTR+dGamma4 DB through the CLIs --------
+    t = time.time()
+    gamma_phase()
+    log(f"[gamma] phase took {time.time() - t:.1f} s")
+
+    phase_s["gamma"] = lap()
+
+    # ---- 14. paired-end assign on the 6,000-column DB files --------------
     t = time.time()
     pe_cli_phase()
     log(f"[pe] 6,000-column phase took {time.time() - t:.1f} s")
 
     phase_s["pe_cli"] = lap()
 
-    # ---- 14. config #5's path: a second sample, sum, merge ----------------
+    # ---- 15. config #5's path: a second sample, sum, merge ----------------
     t = time.time()
     otu_phase()
     log(f"[otu] phase took {time.time() - t:.1f} s")
 
     phase_s["otu"] = lap()
 
-    # ---- 15. configs #1-#2 against the independent f64 oracle -----------
+    # ---- 16. configs #1-#2 against the independent f64 oracle -----------
     t = time.time()
     oracle_phase()
     log(f"[oracle] phase took {time.time() - t:.1f} s")
 
     phase_s["oracle"] = lap()
 
-    # ---- 16. assign's flags and the substitution models -------------------
+    # ---- 17. assign's flags and the substitution models -------------------
     t = time.time()
     flags_phase()
     log(f"[flags] phase took {time.time() - t:.1f} s")

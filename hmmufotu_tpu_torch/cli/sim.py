@@ -113,9 +113,9 @@ def main(argv=None) -> int:
         # whole window (vectorized over sites, sim.cpp:401-407)
         sl = slice(start, end + 1)
         r_loglik = (dot_product_scaled(model.Pr(v * rc),
-                                       tree.msg_up[u][:, sl])
+                                       tree.up_rows(u, sl))
                     + dot_product_scaled(model.Pr(v * (1 - rc)),
-                                         tree.msg_down[u][:, sl]))
+                                         tree.down_rows(u, sl)))
         pr = np.exp(r_loglik - r_loglik.max(axis=0, keepdims=True))
         pr /= pr.sum(axis=0, keepdims=True)
         w = end - start + 1

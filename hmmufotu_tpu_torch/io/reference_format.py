@@ -525,6 +525,7 @@ def save_reference_ptu(tree, path: str):
                 msg = tree.msg_up[u]
             _w(fh, "d", length)
             _w(fh, "Q", 4 * L)
+            # f32 messages (a loaded DB's) widen to f8 exactly
             fh.write(np.asarray(msg, dtype="<f8").T.reshape(-1).tobytes())
         # root + root in-message
         _w(fh, "q", int(tree.root))

@@ -107,10 +107,11 @@ class DeviceTree(NamedTuple):
 def upload_messages(msg: np.ndarray, device, dtype) -> torch.Tensor:
     """[N, 4, Lw] host messages (any float dtype, a view is fine) as a
     `dtype` tensor on `device`, filled one node block at a time: each
-    block is rounded to f32 on the host, then to `dtype` on the device,
-    so no f32 copy of the whole array is made on the host (14.4 GB per
-    message at the gg_97 shape).  The values are those of one whole
-    conversion."""
+    block is rounded to f32 on the host (no copy where it is f32
+    already, as a loaded DB's messages are), then to `dtype` on the
+    device, so no f32 copy of the whole array is made on the host (14.4
+    GB per message at the gg_97 shape).  The values are those of one
+    whole conversion."""
     out = torch.empty(msg.shape, dtype=dtype, device=device)
     step = max(1, UPLOAD_CHUNK_BYTES
                // max(1, 4 * int(np.prod(msg.shape[1:]))))

@@ -9,7 +9,9 @@ src/PhyloTreeUnrooted.{h,cpp}).  Instead of a pointer graph with a
     brlen[N]       f64    branch length from node to its parent
     seqs[N, L]     int8   encoded node sequences (leaves from the MSA,
                           internal filled by ancestral inference)
-    msg_up[N,4,L]  f64    loglik message node -> parent
+    msg_up[N,4,L]  f64    loglik message node -> parent (f32 on a tree
+                          loaded from a DB file, as the file stores it;
+                          the host readers widen the rows they read)
                           (node2branch[u][parent].loglik in the reference;
                           msg_up[root] holds the root in-message, i.e.
                           node2branch[root][null])
@@ -58,6 +60,11 @@ _TAXON_PREFIXES = ("d__", "k__", "p__", "c__", "o__", "f__", "g__", "s__")
 _LEVEL_PREFIXES = ("k__", "p__", "c__", "o__", "f__", "g__", "s__")
 DEFAULT_ROOT_NAME = "cellular_organisms"
 MAX_PDIST = 0.15                # DNASubModel.cpp:39
+# zlib level of the DB file's members: the messages' deflate, in one
+# thread, is most of a large build's save; level 1 runs it well faster
+# than np.savez_compressed's level 6 for a few percent more bytes
+# (PERF.md section 5)
+SAVE_ZLIB_LEVEL = 1
 
 
 # --------------------------------------------------------------------------
@@ -236,6 +243,22 @@ class PTPlacement:
         return 0.0
 
 
+def savez_deflated(path: str, **arrays):
+    """The file np.savez_compressed(path, **arrays) writes (the same
+    member names, .npy members, ZIP_DEFLATED, zip64), deflated at zlib
+    level SAVE_ZLIB_LEVEL.  np.load reads it back to the same arrays."""
+    import zipfile
+    from numpy.lib import format as npy_format
+    if not path.endswith(".npz"):
+        path += ".npz"
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, allowZip64=True,
+                         compresslevel=SAVE_ZLIB_LEVEL) as zf:
+        for key, val in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fh:
+                npy_format.write_array(fh, np.asanyarray(val),
+                                       allow_pickle=False)
+
+
 # --------------------------------------------------------------------------
 # the tree
 # --------------------------------------------------------------------------
@@ -259,6 +282,11 @@ class PTUnrooted:
         self.dg: DiscreteGammaModel | None = None
         self.msg_up: np.ndarray | None = None
         self.msg_down: np.ndarray | None = None
+        # the dtype the host readers compute the messages in: None reads
+        # them as stored (a tree evaluated in this process); load() sets
+        # f64, which its f32 arrays widen to exactly (the reference
+        # package's load widens the whole arrays)
+        self.msg_read_dtype = None
         self._children: list[list[int]] | None = None
 
     # ----- topology -------------------------------------------------------
@@ -446,6 +474,20 @@ class PTUnrooted:
         out[seq[cols], cols] = 0.0
         return out
 
+    def _read(self, rows: np.ndarray) -> np.ndarray:
+        if self.msg_read_dtype is None:
+            return rows
+        return np.asarray(rows, self.msg_read_dtype)
+
+    def up_rows(self, u: int, sl: slice = slice(None)) -> np.ndarray:
+        """[4, *] msg_up[u] over columns sl, in msg_read_dtype: what every
+        host reader of the messages computes with."""
+        return self._read(self.msg_up[u][:, sl])
+
+    def down_rows(self, u: int, sl: slice = slice(None)) -> np.ndarray:
+        """[4, *] msg_down[u] over columns sl, in msg_read_dtype."""
+        return self._read(self.msg_down[u][:, sl])
+
     def _conv_rates(self, msg: np.ndarray, w: float) -> np.ndarray:
         """Rate-scaled convolutions of one incoming message: [4, L, K]
         where K = number of dGamma categories (1 if none)."""
@@ -551,6 +593,7 @@ class PTUnrooted:
         K = len(rates)
         self.msg_up = np.zeros((N, 4, L), dtype=dtype)
         self.msg_down = np.zeros((N, 4, L), dtype=dtype)
+        self.msg_read_dtype = None
         if N == 0 or L == 0:
             return
 
@@ -641,6 +684,7 @@ class PTUnrooted:
         K = len(self._rates())
         self.msg_up = np.zeros((N, 4, L), dtype=dtype)
         self.msg_down = np.zeros((N, 4, L), dtype=dtype)
+        self.msg_read_dtype = None
         if N == 0 or L == 0:
             return
         maxd, lvl, P, seq_leaves, root_is_leaf = self._level_plan()
@@ -778,13 +822,13 @@ class PTUnrooted:
         the root message after re-rooting at u (reference loglik(node),
         PhyloTreeUnrooted.cpp:315-356)."""
         if u == self.root:
-            return self.msg_up[u]
+            return self.up_rows(u)
         K = len(self._rates())
         L = self.cs_len
         S = np.zeros((4, L, K))
         for c in self.children_of(u):
-            S += self._conv_rates(self.msg_up[c], float(self.brlen[c]))
-        S += self._conv_rates(self.msg_down[u], float(self.brlen[u]))
+            S += self._conv_rates(self.up_rows(c), float(self.brlen[c]))
+        S += self._conv_rates(self.down_rows(u), float(self.brlen[u]))
         out = row_mean_exp_scaled(S) if K > 1 else S[:, :, 0]
         if self.is_leaf(u) and self.has_seq[u]:
             out += self.leaf_loglik(self.seqs[u])
@@ -795,13 +839,14 @@ class PTUnrooted:
         (reference treeLoglik, PhyloTreeUnrooted.h:917-951)."""
         if end is None:
             end = self.cs_len - 1
-        col = dot_product_scaled_vec(self.model.pi,
-                                     self.msg_up[self.root][:, start:end + 1])
+        col = dot_product_scaled_vec(
+            self.model.pi, self.up_rows(self.root, slice(start, end + 1)))
         return float(col.sum())
 
     def infer_seq(self):
         """Fill internal node seqs by per-site argmax of their up-message
-        (reference inferSeq, PhyloTreeUnrooted.cpp:1085-1093)."""
+        (reference inferSeq, PhyloTreeUnrooted.cpp:1085-1093).  An argmax
+        is the same on the stored rows as on their exact widening."""
         for u in range(self.num_nodes):
             if self.has_seq[u]:
                 continue
@@ -811,7 +856,8 @@ class PTUnrooted:
     def estimate_num_mutations(self, j: int | None = None) -> np.ndarray:
         """Per-site count of branches whose ML states differ at the two
         ends (reference estimateNumMutations, PhyloTreeUnrooted.cpp:
-        1008-1016); vectorized over all sites."""
+        1008-1016); vectorized over all sites (on the stored arrays: an
+        argmax does not change under an exact widening)."""
         states = self.msg_up.argmax(axis=1)          # [N, L]
         mask = self.parent >= 0
         diff = states[mask] != states[self.parent[mask]]
@@ -835,8 +881,8 @@ class PTUnrooted:
             ratio = 0.5
         w0 = float(self.brlen[u])
         sl = slice(loc.start, loc.end + 1)
-        U = self.msg_up[u][:, sl]
-        V = self.msg_down[u][:, sl]
+        U = self.up_rows(u, sl)
+        V = self.down_rows(u, sl)
         Nl = self.leaf_loglik(seq)[:, sl]
         wur = w0 * ratio
         wvr = w0 - wur
@@ -857,8 +903,8 @@ class PTUnrooted:
         optimizeBranchLength, PhyloTreeUnrooted.cpp:749-954)."""
         u, v = place.c_node, place.p_node
         sl = slice(place.start, place.end + 1)
-        U = self.msg_up[u][:, sl]
-        V = self.msg_down[u][:, sl]
+        U = self.up_rows(u, sl)
+        V = self.down_rows(u, sl)
         Nl = self.leaf_loglik(seq)[:, sl]
         w0 = float(self.brlen[u])
 
@@ -1051,16 +1097,18 @@ class PTUnrooted:
             buf = io.StringIO()
             self.model.write(buf)
             model_txt = buf.getvalue()
-        np.savez_compressed(
+        none = np.zeros(0, np.float32)
+        savez_deflated(
             path,
             meta=np.array([json.dumps(meta)]),
             parent=self.parent, brlen=self.brlen,
             anno_dist=self.anno_dist, heights=self.heights,
             seqs=self.seqs, has_seq=self.has_seq, msa_id=self.msa_id,
-            msg_up=np.float32(self.msg_up) if self.msg_up is not None
-            else np.zeros(0, np.float32),
-            msg_down=np.float32(self.msg_down) if self.msg_down is not None
-            else np.zeros(0, np.float32),
+            # an f32 array is written as it is, not copied
+            msg_up=none if self.msg_up is None
+            else np.asarray(self.msg_up, np.float32),
+            msg_down=none if self.msg_down is None
+            else np.asarray(self.msg_down, np.float32),
             model_txt=np.array([model_txt]),
         )
 
@@ -1085,9 +1133,11 @@ class PTUnrooted:
             tree.seqs = z["seqs"]
             tree.has_seq = z["has_seq"]
             tree.msa_id = z["msa_id"]
-            if z["msg_up"].size:
-                tree.msg_up = np.float64(z["msg_up"])
-                tree.msg_down = np.float64(z["msg_down"])
+            # the messages stay f32, as stored; readers widen their rows
+            up = z["msg_up"]
+            if up.size:
+                tree.msg_up, tree.msg_down = up, z["msg_down"]
+                tree.msg_read_dtype = np.float64
             if meta["model_type"]:
                 tree.model = load_model(io.StringIO(str(z["model_txt"][0])))
             if meta["dg_alpha"] is not None:

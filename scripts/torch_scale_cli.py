@@ -17,13 +17,17 @@ columns).  Steps:
              and shotgun (--shotgun, from anywhere in the alignment: one
              batch whose union window covers every column);
   2. build   the build CLI with -s GTR --msg-dtype f32 --eval-engine
-             torch: seconds of each stage from its log lines, of each DB
+             torch (--gamma: -V -k 4, the dGamma4 rate mixture, whose
+             alpha estimate and second evaluate are stages of their
+             own): seconds of each stage from its log lines, of each DB
              file's save and its size, peak RSS, device peak;
   3. assign  the assign CLI with its default flags (the whole tree's
              messages on the device) on each read file: host clocks
              around Database.load, the placer's upload and the stream
-             (stream_single), its Processed lines, peak RSS, device
-             peak;
+             (stream_single), its Processed lines and the rates of the
+             first and the last 10 batches, peak RSS, device peak, the
+             loaded messages' dtype, the placer's rate count, the TSV's
+             bytes, and on a card K1-K3 launches and CUDA-event ms;
   4. parity  in the assign process, after the CLI returned: the first
              --parity reads' placements against the exact host path
              (pipeline.assign_read) on the same alignments, by the rules
@@ -38,6 +42,10 @@ columns).  Steps:
 
     python scripts/torch_scale_cli.py --leaves 75000 --length 6000 \
         --progress out/torch_scale_cli.json
+BASELINE config #3 (a GTR+dGamma4 DB, 1,000,000 single-end amplicon
+reads, one card; `reduced` names every cut of it):
+    python scripts/torch_scale_cli.py --leaves 75000 --length 6000 \
+        --reads 1000000 --shotgun 0 --gamma --progress out/config3.json
 CPU smoke:
     python scripts/torch_scale_cli.py --leaves 64 --length 600 \
         --region 400 --reads 64 --shotgun 32 --batch 32 --parity 16 \
@@ -49,10 +57,12 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -82,6 +92,18 @@ BUILD_STAGES = (("msa_prune", "MSA database created"),
                 ("evaluate", "Final tree log-likelihood"),
                 ("infer_seq", "Ancestral sequences inferred"),
                 ("save", "Database saved"))
+# with -V: the child logs EVALUATED after each evaluate returns; the alpha
+# estimate (the mutation count) ends at the build's alpha line, and the
+# second evaluate, under the rate mixture, at its final loglik
+EVALUATED = "torch_scale_cli: evaluate returned"
+GAMMA_STAGES = (BUILD_STAGES[:4]
+                + (("evaluate", EVALUATED + " 1"),
+                   ("alpha_estimate", "Estimated dGamma alpha"),
+                   ("evaluate_dgamma", "Final tree log-likelihood"))
+                + BUILD_STAGES[5:])
+DG_K = 4                # rate categories of --gamma (the build's -k)
+CONFIG3_READS = 1_000_000   # BASELINE config #3's reads
+RATE_BATCHES = 10       # batches of the first and last stream rates
 RESIDENT_COLS = 1024    # the site window of assign --resident-window 1024
 RESIDENT_SAMPLE = 128   # the reads it chooses the window from
 READS_SEED = 8          # the reads' rng (synth_inputs' own seed is 7)
@@ -122,18 +144,24 @@ def db_file_bytes(prefix: str) -> dict:
             if os.path.exists(prefix + suf)}
 
 
-def tsv_rows(path):
+def tsv_rows(path, limit: int | None = None, fields: int = -1):
+    """The body rows of an assignment TSV, split into fields (the first
+    `fields` and the rest, where given), one at a time: the first
+    `limit`, or all."""
     with open(path) as fh:
-        return [line.rstrip("\n").split("\t") for line in fh
-                if not line.startswith("#") and not line.startswith("id\t")]
+        body = (line for line in fh
+                if not line.startswith("#") and not line.startswith("id\t"))
+        for line in itertools.islice(body, limit):
+            yield line.rstrip("\n").split("\t", fields)
 
 
 def resident_oow(rows, L: int, Ws: int = RESIDENT_COLS,
                  sample: int = RESIDENT_SAMPLE) -> dict:
-    """Of an assignment TSV's rows, those whose placement window leaves
-    the site window `assign --resident-window Ws` would have chosen:
-    its rule (cli/assign.py) from the first `sample` reads' aligned
-    starts, then pipeline.dispatch_place_batch's rule for a read."""
+    """Of an assignment TSV's rows (any iterable), those whose placement
+    window leaves the site window `assign --resident-window Ws` would
+    have chosen: its rule (cli/assign.py) from the first `sample` reads'
+    aligned starts, then pipeline.dispatch_place_batch's rule for a
+    read."""
     W = min(512, L)
     Ws = min(max(Ws, W), L)
     span = []
@@ -147,9 +175,32 @@ def resident_oow(rows, L: int, Ws: int = RESIDENT_COLS,
     n_oow = sum(s is not None and leaves_window(*s, s0, Ws, W)
                 for s in span)
     n_valid = sum(s is not None for s in span)
-    return {"site_window": [s0, Ws], "reads_aligned": n_valid,
+    return {"site_window": [s0, Ws], "rows": len(span),
+            "reads_aligned": n_valid,
             "reads_out_of_window": n_oow,
             "share": n_oow / n_valid if n_valid else None}
+
+
+def stream_rates(processed, stream_s: float, k: int = RATE_BATCHES):
+    """From the Processed timeline [(seconds, reads so far)]: the first
+    batch's seconds from the stream's start (its last line less its
+    clock), and reads/s over the first and over the last k full batches
+    after it, each between Processed lines.  The first batch also fills
+    the double buffer, and a short last batch, placed while the host
+    wrote the one before, ends moments after it: neither is counted."""
+    t = [p[0] for p in processed]
+    n = [p[1] for p in processed]
+    t_start = t[-1] - stream_s
+    if len(n) > 2 and n[-1] - n[-2] < n[1] - n[0]:
+        t, n = t[:-1], n[:-1]
+    k = min(k, (len(n) - 1) // 2)
+    if k == 0:
+        return None
+    first = (n[k] - n[0]) / (t[k] - t[0])
+    last = (n[-1] - n[-1 - k]) / (t[-1] - t[-1 - k])
+    return {"batches": k, "first_batch_s": t[0] - t_start,
+            "first_reads_per_s": first, "last_reads_per_s": last,
+            "last_over_first": last / first}
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +316,10 @@ def child(spec: dict) -> int:
                                  (ProfileHMM, "to_hmmer_file", ".hmm"),
                                  (PTUnrooted, "save", ".ptu.npz")):
             clock(owner, name, clocks, "save" + key)
+        n_eval = itertools.count(1)
+        clock(PTUnrooted, "evaluate", clocks, "evaluate_s", sync=sync,
+              keep=lambda _: logging.getLogger().info(
+                  "%s %d", EVALUATED, next(n_eval)))
     elif spec["cli"] in ("sum", "merge"):
         # host tools: they take no device
         from hmmufotu_tpu_torch.alphabet import DNA
@@ -295,6 +350,13 @@ def child(spec: dict) -> int:
         clock(Database, "load", clocks, "load_s",
               keep=lambda db: held.setdefault("db", db))
         clock(DevicePlacer, "__init__", clocks, "upload_s", sync=sync)
+        made = DevicePlacer.__init__
+
+        def init(placer, *a, **kw):
+            made(placer, *a, **kw)
+            held["placer"] = placer
+
+        DevicePlacer.__init__ = init
         clock(assign, "stream_single", clocks, "stream_s", sync=sync)
         stream, P = pl.assign_stream, spec["parity"]
         seen = SimpleNamespace(alns=[], best=[])
@@ -317,6 +379,12 @@ def child(spec: dict) -> int:
            "clocks": clocks, "stamps": stamps.rows}
     if kernels:
         out.update(kernels())
+    if "db" in held:
+        ptu = held["db"].ptu
+        out.update(msg_dtype=str(ptu.msg_up.dtype),
+                   dg_alpha=None if ptu.dg is None else ptu.dg.alpha)
+    if "placer" in held:
+        out["placer_rates"] = int(held["placer"].dt.rates.numel())
     if spec["cli"] == "assign" and rc == 0 and P:
         out.update(parity(pl, held["db"].ptu, seen, spec["tsv"]))
     print(json.dumps(out), flush=True)
@@ -326,7 +394,7 @@ def child(spec: dict) -> int:
 def parity(pl, tree, seen, tsv) -> dict:
     """The recorded first placements against the exact host path, and
     against the TSV's rows (the same branch and loglik text)."""
-    rows = tsv_rows(tsv)
+    rows = tsv_rows(tsv, len(seen.best))
     n_rows_equal = sum(
         (b is None and r[10] == "-1") or (b is not None and r[10] ==
                                           b.get_id() and r[15] ==
@@ -390,13 +458,18 @@ def main(argv=None) -> int:
     ap.add_argument("--reads", type=int, default=20480,
                     help="amplicon reads, all from one --region")
     ap.add_argument("--shotgun", type=int, default=2048,
-                    help="reads from anywhere in the alignment")
+                    help="reads from anywhere in the alignment (0: the "
+                         "amplicon file alone)")
     ap.add_argument("--region", type=int, default=1024,
                     help="columns of the amplicon region (placed as the "
                          "scale harnesses' site window)")
     ap.add_argument("--batch", type=int, default=0,
                     help="assign -b (0: the CLI's default)")
     ap.add_argument("--parity", type=int, default=128)
+    ap.add_argument("--gamma", action="store_true",
+                    help=f"build with -V -k {DG_K} (the dGamma4 rate "
+                         "mixture): BASELINE config #3 with --reads "
+                         f"{CONFIG3_READS}")
     ap.add_argument("--eval-engine", default="torch",
                     choices=["torch", "numpy"])
     ap.add_argument("--work", default=os.path.join(
@@ -405,7 +478,8 @@ def main(argv=None) -> int:
     ap.add_argument("--progress", default="",
                     help="JSON file holding the numbers so far")
     ap.add_argument("--why", default="",
-                    help="why --leaves is below the gg_97 shape's")
+                    help="why --leaves (or, with --gamma, --reads or "
+                         "--parity) is below the configuration's")
     ap.add_argument("--device", default="cuda",
                     help="cuda; cpu only when asked for")
     ap.add_argument("--child", default="", help=argparse.SUPPRESS)
@@ -417,12 +491,22 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     res = {"device": str(dev), "card": card_line(dev),
            "free_total_gb": free_total_gb(), "leaves": args.leaves,
-           "length": args.length, "eval_engine": args.eval_engine}
-    if args.leaves < GG97_LEAVES:
-        res["reduced"] = {"from": f"{2 * GG97_LEAVES - 1} nodes",
-                          "to": f"{2 * args.leaves - 1} nodes",
+           "length": args.length, "eval_engine": args.eval_engine,
+           "gamma": args.gamma}
+    cuts = [("nodes", 2 * GG97_LEAVES - 1, 2 * args.leaves - 1)]
+    if args.gamma:
+        # config #3: its reads, and the parity of the CLI harnesses
+        cuts += [("reads", CONFIG3_READS, args.reads),
+                 ("parity", 128, args.parity)]
+    cuts = [c for c in cuts if c[2] < c[1]]
+    if cuts:
+        res["reduced"] = {"what": "; ".join(c[0] for c in cuts),
+                          "from": "; ".join(f"{c[1]} {c[0]}" for c in cuts),
+                          "to": "; ".join(f"{c[2]} {c[0]}" for c in cuts),
                           "why": args.why}
         log("reduced " + json.dumps(res["reduced"]))
+    else:
+        res["reduced"] = {}
 
     def progress():
         if args.progress:
@@ -433,6 +517,8 @@ def main(argv=None) -> int:
 
     # ---- 1. inputs ------------------------------------------------------
     d = args.work
+    os.makedirs(d, exist_ok=True)
+    res["disk_free_gb"] = shutil.disk_usage(d).free / 1e9
     t = time.perf_counter()
     log("inputs...")
     res["n_nodes"], res["depth"] = synth_inputs(d, args.leaves, args.length)
@@ -445,8 +531,9 @@ def main(argv=None) -> int:
     r0, Wr = site_window(L, args.region)
     rng = np.random.default_rng(READS_SEED)
     files = {"amplicon": simulate_reads(tree, rng, args.reads,
-                                        region=(r0, r0 + Wr)),
-             "shotgun": simulate_reads(tree, rng, args.shotgun)}
+                                        region=(r0, r0 + Wr))}
+    if args.shotgun:
+        files["shotgun"] = simulate_reads(tree, rng, args.shotgun)
     del tree
     for name, reads in files.items():
         files[name] = write_fasta(os.path.join(d, f"{name}.fasta"), reads)
@@ -465,8 +552,14 @@ def main(argv=None) -> int:
     b = run_child("build", [
         os.path.join(d, FASTA), os.path.join(d, TREE), "-a",
         os.path.join(d, TAXONOMY), "-n", prefix, "-s", "GTR",
-        "--msg-dtype", "f32", "--eval-engine", args.eval_engine], args)
-    b["stages_s"] = stage_seconds(b.pop("stamps", []))
+        "--msg-dtype", "f32", "--eval-engine", args.eval_engine]
+        + (["-V", "-k", str(DG_K)] if args.gamma else []), args)
+    stamps = b.pop("stamps", [])
+    b["stages_s"] = stage_seconds(
+        stamps, GAMMA_STAGES if args.gamma else BUILD_STAGES)
+    alpha = [m for _, m in stamps if m.startswith("Estimated dGamma alpha")]
+    if alpha:
+        b["dg_alpha"] = float(alpha[-1].split("=")[-1])
     b["file_bytes"] = db_file_bytes(prefix)
     res["build"] = b
     log("build: " + json.dumps(b))
@@ -481,23 +574,33 @@ def main(argv=None) -> int:
         tsv = os.path.join(d, f"{name}.tsv")
         argv_a = [prefix, path, "-o", tsv] + (
             ["-b", str(args.batch)] if args.batch else [])
-        a = run_child("assign", argv_a, args, tsv)
+        a = run_child("assign", argv_a, args, tsv,
+                      kernels=dev.type == "cuda")
         stamps = a.pop("stamps", [])
         a["processed"] = [[t, int(m.split()[1])] for t, m in stamps
                           if m.startswith("Processed ")]
         n = args.reads if name == "amplicon" else args.shotgun
         a["reads"] = n
-        if a.get("clocks", {}).get("stream_s"):
-            a["reads_per_s"] = n / a["clocks"]["stream_s"]
+        stream_s = a.get("clocks", {}).get("stream_s")
+        if stream_s:
+            a["reads_per_s"] = n / stream_s
+            a["rates"] = stream_rates(a["processed"], stream_s)
+        a["tsv_bytes"] = os.path.getsize(tsv) if os.path.exists(tsv) \
+            else None
         if a["rc"] == 0:
-            a["out_of_window"] = resident_oow(tsv_rows(tsv), L)
+            a["out_of_window"] = resident_oow(tsv_rows(tsv, fields=9), L)
+            a["tsv_rows"] = a["out_of_window"]["rows"]
         res[name] = a
-        log(f"{name}: " + json.dumps(a))
+        log(f"{name}: " + json.dumps(
+            {k: v for k, v in a.items() if k != "processed"}))
         progress()
         P = a.get("parity_reads", 0)
-        ok = ok and a["rc"] == 0 and (not args.parity or (
-            P > 0 and min(a["parity_cnode_match"], a["parity_loglik_match"])
-            >= 0.95 * P and a["parity_tsv_rows_equal"] == a["parity_rows"]))
+        ok = ok and a["rc"] == 0 and a["exit"] == 0 \
+            and a.get("tsv_rows") == n and (not args.parity or (
+                P > 0 and min(a["parity_cnode_match"],
+                              a["parity_loglik_match"]) >= 0.95 * P
+                and a["parity_tsv_rows_equal"] == a["parity_rows"])) \
+            and ("launches" not in a or min(a["launches"].values()) > 0)
 
     print(json.dumps(res))
     return 0 if ok else 1

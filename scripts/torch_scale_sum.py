@@ -76,12 +76,11 @@ from evolved_inputs import (FASTA, READ_LEN, TAXONOMY, TREE,  # noqa: E402
                             input_tree, simulate_reads, synth_inputs)
 from torch_scale_assign import site_window  # noqa: E402
 from torch_scale_cli import (db_file_bytes, free_total_gb, log,  # noqa
-                             run_child, stage_seconds)
+                             run_child, stage_seconds, stream_rates)
 from torch_scale_eval import card_line  # noqa: E402
 
 GG97_NODES = 149999
 OTU_PREFIX = "OTU_"        # the sum CLI's default -p
-RATE_BATCHES = 10          # batches of the first and last stream rates
 SHAPE_FILE = "db_shape.json"
 COMMUNITY_LEAVES = 1000    # leaves every sample shares; and its own
 
@@ -284,28 +283,6 @@ def sum_argv(prefix: str, tsvs: dict, outs: dict) -> list[str]:
     at its defaults -n 0 -m 0 -q 0."""
     return ([prefix] + list(tsvs.values()) + ["-s"] + list(tsvs)
             + [x for k, p in outs.items() for x in (k, p)])
-
-
-def stream_rates(processed, stream_s: float, k: int = RATE_BATCHES):
-    """From the Processed timeline [(seconds, reads so far)]: the first
-    batch's seconds from the stream's start (its last line less its
-    clock), and reads/s over the first and over the last k full batches
-    after it, each between Processed lines.  The first batch also fills
-    the double buffer, and a short last batch, placed while the host
-    wrote the one before, ends moments after it: neither is counted."""
-    t = [p[0] for p in processed]
-    n = [p[1] for p in processed]
-    t_start = t[-1] - stream_s
-    if len(n) > 2 and n[-1] - n[-2] < n[1] - n[0]:
-        t, n = t[:-1], n[:-1]
-    k = min(k, (len(n) - 1) // 2)
-    if k == 0:
-        return None
-    first = (n[k] - n[0]) / (t[k] - t[0])
-    last = (n[-1] - n[-1 - k]) / (t[-1] - t[-1 - k])
-    return {"batches": k, "first_batch_s": t[0] - t_start,
-            "first_reads_per_s": first, "last_reads_per_s": last,
-            "last_over_first": last / first}
 
 
 # ---------------------------------------------------------------------------

@@ -111,20 +111,23 @@ def test_placement_node_blocks_bit_equal(db_prefix, monkeypatch,  # noqa
 def test_upload_node_blocks_equal_one_conversion(db_prefix, monkeypatch,  # noqa
                                                  msg_dtype, site_window):
     """DeviceTree.from_tree fills the message tensors in node blocks from
-    the host's f64 messages: in blocks of 5 nodes each equals the one
-    whole f64 -> f32 -> storage-dtype conversion of the window, and every
-    field equals that of the default block size."""
+    the host's messages (f32 as a loaded DB holds them, or f64 as an f64
+    evaluate leaves them): in blocks of 5 nodes each equals the one whole
+    -> f32 -> storage-dtype conversion of the window, and every field
+    equals that of the default block size."""
     from hmmufotu_tpu_torch.db import Database
     from hmmufotu_tpu_torch.phylo import placement
     tree = Database.load(db_prefix).ptu
-    assert tree.msg_up.dtype == np.float64
+    assert tree.msg_up.dtype == np.float32
     lo, hi = (0, tree.cs_len) if site_window is None \
         else (site_window[0], sum(site_window))
     want_dtype = msg_dtype or torch.float32
     a = placement.DeviceTree.from_tree(tree, "cpu", msg_dtype, site_window)
     monkeypatch.setattr(placement, "UPLOAD_CHUNK_BYTES",
                         5 * 4 * 4 * (hi - lo))
-    for msg in (tree.msg_up, tree.msg_down):
+    # f64 messages that f32 does not hold exactly
+    for msg in (tree.msg_up, tree.msg_down,
+                np.float64(tree.msg_down) * (1 + 1e-9)):
         got = placement.upload_messages(msg[:, :, lo:hi], "cpu", want_dtype)
         want = torch.as_tensor(np.asarray(msg[:, :, lo:hi], np.float32)
                                ).to(want_dtype)

@@ -119,6 +119,21 @@ def test_stage_seconds_and_resident_rule(scripts_path):
     assert got == {"msa_prune": 1, "csfm": 2, "hmm": 1,
                    "newick_annotate_heights": 4, "evaluate": 7,
                    "infer_seq": 1, "save": 30}
+    # -V: the alpha estimate and the second evaluate on their own
+    from torch_scale_cli import EVALUATED, GAMMA_STAGES
+    got = stage_seconds(stamps(
+        (1, "MSA database created for 4 X 9"), (3, "CSFM index built"),
+        (4, "Banded HMM profile trained (K=9)"),
+        (8, "DNA substitution model loaded: GTR"),
+        (9, "Evaluating phylogenetic tree"), (12, EVALUATED + " 1"),
+        (13, "Estimated dGamma alpha = 0.5"), (20, EVALUATED + " 2"),
+        (21, "Final tree log-likelihood: -1"),
+        (22, "Ancestral sequences inferred"),
+        (52, "Database saved with prefix 'x'")), GAMMA_STAGES)
+    assert got == {"msa_prune": 1, "csfm": 2, "hmm": 1,
+                   "newick_annotate_heights": 4, "evaluate": 4,
+                   "alpha_estimate": 1, "evaluate_dgamma": 8,
+                   "infer_seq": 1, "save": 30}
 
     def row(cs_start, cs_end, cost="10"):
         return ["r", "d", "1", "9", "1", "9", str(cs_start), str(cs_end),
@@ -159,34 +174,45 @@ def assert_tsv_agree(got, want):
     assert sum(r[10] != "-1" for r in got) >= len(got) - 2
 
 
-def test_scale_cli_matches_reference_clis(tmp_path):
+@pytest.mark.parametrize("flags", [[], ["--gamma"]],
+                         ids=["gtr", "gamma"])
+def test_scale_cli_matches_reference_clis(tmp_path, flags):
     """The harness's build and assign CLIs (numpy engine, on the CPU)
     against the reference package's CLIs on the same inputs and read
-    files."""
+    files; with --gamma (BASELINE config #3's path) both build -V -k 4."""
     from hmmufotu_tpu.cli.assign import main as ref_assign
     from hmmufotu_tpu.cli.build import main as ref_build
+    from hmmufotu_tpu.db import Database as RefDB
+    gamma = bool(flags)
     work = tmp_path / "port"
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, os.path.join(SCRIPTS, "torch_scale_cli.py")]
-        + SHAPE + ["--eval-engine", "numpy", "--device", "cpu", "--work",
-                   str(work), "--progress", str(tmp_path / "p.json")],
+        + SHAPE + flags + ["--eval-engine", "numpy", "--device", "cpu",
+                           "--work", str(work), "--progress",
+                           str(tmp_path / "p.json")],
         env=env, cwd=REPO, capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert json.load(open(tmp_path / "p.json")) == got
     assert got["device"] == "cpu" and got["card"] is None
-    assert got["n_nodes"] == 127 and got["reduced"]["to"] == "127 nodes"
+    assert got["n_nodes"] == 127 and got["gamma"] == gamma
+    # config #3's reads and parity are cuts only of a --gamma run
+    assert got["reduced"]["to"] == (
+        "127 nodes; 48 reads; 8 parity" if gamma else "127 nodes")
     b = got["build"]
+    stages = ({"evaluate", "alpha_estimate", "evaluate_dgamma"} if gamma
+              else {"evaluate"})
     assert b["rc"] == 0 and set(b["stages_s"]) == {
-        "msa_prune", "csfm", "hmm", "newick_annotate_heights", "evaluate",
-        "infer_seq", "save"}
+        "msa_prune", "csfm", "hmm", "newick_annotate_heights",
+        "infer_seq", "save"} | stages
     assert set(b["file_bytes"]) == {".msa.npz", ".csfm.npz", ".hmm",
                                     ".ptu.npz"}
-    assert set(b["clocks"]) == {"save" + s for s in b["file_bytes"]}
+    assert set(b["clocks"]) == {"save" + s for s in b["file_bytes"]} \
+        | {"evaluate_s"}
     for name, n in (("amplicon", 48), ("shotgun", 24)):
         a = got[name]
-        assert a["rc"] == 0 and a["reads"] == n
+        assert a["rc"] == 0 and a["reads"] == n == a["tsv_rows"]
         assert set(a["clocks"]) == {"load_s", "upload_s", "stream_s"}
         assert [p[1] for p in a["processed"]] == list(range(24, n + 1, 24))
         assert a["parity_rows"] == a["parity_tsv_rows_equal"] == 8
@@ -194,12 +220,22 @@ def test_scale_cli_matches_reference_clis(tmp_path):
         assert a["parity_loglik_match"] >= 0.95 * a["parity_reads"]
         assert a["out_of_window"]["reads_aligned"] == n
         assert a["peak_rss_gb"] > 0 and a["device_peak_gb"] is None
+        assert a["msg_dtype"] == "float32" and a["tsv_bytes"] > 0
+        assert a["placer_rates"] == (4 if gamma else 1)
+        assert (a["dg_alpha"] is None) != gamma
     # the reference package's CLIs on the same files
     ref = str(tmp_path / "ref")
     assert ref_build([str(work / "synth.fasta"), str(work / "synth.tree"),
                       "-a", str(work / "synth_taxonomy.txt"), "-n", ref,
                       "-s", "GTR", "--msg-dtype", "f32",
-                      "--eval-engine", "numpy"]) == 0
+                      "--eval-engine", "numpy"]
+                     + (["-V", "-k", "4"] if gamma else [])) == 0
+    dg = RefDB.load(ref).ptu.dg
+    assert (dg is None) != gamma
+    if gamma:
+        # the build's log line holds %g of the alpha
+        assert b["dg_alpha"] == pytest.approx(dg.alpha, rel=1e-5)
+        assert got["amplicon"]["dg_alpha"] == dg.alpha
     for name in ("amplicon", "shotgun"):
         want = str(tmp_path / f"{name}.tsv")
         assert ref_assign([ref, str(work / f"{name}.fasta"), "-o", want,
