@@ -1301,6 +1301,70 @@ def sweep_timer():
 # the normal entry points: build -> DB files -> assign
 # ---------------------------------------------------------------------------
 
+def save_timers():
+    """(seconds, patch): while the patch is active, the seconds of each
+    npz file's save (MSA, CSFM index, tree) are stored under its
+    suffix."""
+    from hmmufotu_tpu_torch.index import CSFMIndex
+    from hmmufotu_tpu_torch.msa import MSA
+    from hmmufotu_tpu_torch.phylo import PTUnrooted
+    secs, triples = {}, []
+    for cls, suf in ((MSA, ".msa.npz"), (CSFMIndex, ".csfm.npz"),
+                     (PTUnrooted, ".ptu.npz")):
+        def timed(obj, path, _save=cls.save, _suf=suf):
+            t = time.time()
+            _save(obj, path)
+            secs[_suf] = time.time() - t
+        triples.append((cls, "save", timed))
+    return secs, Patch(*triples)
+
+
+def same_array(a, b) -> bool:
+    """The same dtype, shape, order and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.flags.f_contiguous == b.flags.f_contiguous
+            and a.tobytes("A") == b.tobytes("A"))
+
+
+def db_file_checks(prefix, save_s):
+    """Each npz file the build CLI wrote through the port's writer, three
+    ways: every member carries its chunk table; zipfile's testzip() finds
+    no bad member; the port's reader (every host core) and np.load (one
+    zlib stream a member) give bit-equal arrays.  Logs each file's save
+    and both loads' seconds and the threads the writer and reader use."""
+    import zipfile
+    from hmmufotu_tpu_torch.io.npz import NpzReader, chunk_table, host_threads
+    out = {}
+    for suf in (".msa.npz", ".csfm.npz", ".ptu.npz"):
+        path = prefix + suf
+        with zipfile.ZipFile(path) as z:
+            infos = z.infolist()
+            bad = z.testzip()
+        t = time.time()
+        with NpzReader(path) as r:
+            got = {k: r[k] for k in r.files}
+        port_s = time.time() - t
+        t = time.time()
+        with np.load(path, allow_pickle=False) as z:
+            want = {k: z[k] for k in z.files}
+        np_s = time.time() - t
+        out[suf] = {
+            "save_s": round(save_s[suf], 3),
+            "bytes": os.path.getsize(path), "members": len(infos),
+            "chunk_tables": sum(chunk_table(i) is not None for i in infos),
+            "testzip_bad": bad, "port_load_s": round(port_s, 3),
+            "np_load_s": round(np_s, 3),
+            "bit_equal": sorted(got) == sorted(want) and all(
+                same_array(got[k], want[k]) for k in want)}
+        del got, want
+    log(f"[cli] DB files (writer and reader on {host_threads()} threads): "
+        f"{json.dumps(out)}")
+    for suf, r in out.items():
+        if r["chunk_tables"] != r["members"] or r["testzip_bad"] is not None \
+                or not r["bit_equal"]:
+            raise AssertionError(f"DB file {suf} fails its checks: {r}")
+
+
 def cli_phase():
     """The build CLI writes an evolved DB of CLI_LEAVES leaves x
     SCALE_COLS columns to files (torch evaluate engine on the card); the
@@ -1310,7 +1374,8 @@ def cli_phase():
     counted from 0 for each run.  The first N_CLI_CPU_READS rows of each
     against a CPU run of the assign CLI: alignments equal, the same
     branch and taxon or a near tie on at most a quarter of the placed
-    rows (the synthetic DBs' rule of [scale])."""
+    rows (the synthetic DBs' rule of [scale]).  Each npz file the build
+    wrote is checked by db_file_checks."""
     import logging
     import torch
     from evolved_inputs import (FASTA, TAXONOMY, TREE, input_tree,
@@ -1347,15 +1412,18 @@ def cli_phase():
             root.removeHandler(stamps)
 
     prefix = os.path.join(d, "db")
-    rc, rows = stamped(lambda: build_main([
-        os.path.join(d, FASTA), os.path.join(d, TREE), "-a",
-        os.path.join(d, TAXONOMY), "-n", prefix, "-s", "GTR",
-        "--msg-dtype", "f32", "--eval-engine", "torch"]))
+    save_s, timers = save_timers()
+    with timers:
+        rc, rows = stamped(lambda: build_main([
+            os.path.join(d, FASTA), os.path.join(d, TREE), "-a",
+            os.path.join(d, TAXONOMY), "-n", prefix, "-s", "GTR",
+            "--msg-dtype", "f32", "--eval-engine", "torch"]))
     if rc != 0:
         raise RuntimeError("build CLI failed")
     stages = {k: round(v, 2) for k, v in stage_seconds(rows).items()}
     log(f"[cli] build CLI stage seconds {json.dumps(stages)}; DB file "
         f"bytes {json.dumps(db_file_bytes(prefix))}")
+    db_file_checks(prefix, save_s)
     t = time.time()
     cpu = cli_rows([prefix, fa_cpu], os.path.join(d, "cpu.tsv"), "cpu")
     log(f"[cli] assign CLI on the CPU, {len(cpu)} reads: "
@@ -1567,6 +1635,47 @@ def pe_cli_phase():
                              "disagrees with the CPU run")
 
 
+def merge_tree_check(tables, prefix, merged, nwk) -> dict:
+    """merge -t of the OTU tables through the tree's topology alone: the
+    npz members it reads are recorded (no message may be among them), and
+    its newick is held byte-equal to one a whole Database.load gives.
+    Returns the seconds of both merges."""
+    from hmmufotu_tpu_torch.cli.merge import main as merge_main
+    from hmmufotu_tpu_torch.db import Database
+    from hmmufotu_tpu_torch.io.npz import NpzReader
+    read, get, secs = [], NpzReader.__getitem__, {}
+
+    def spy(z, key):
+        read.append(os.path.basename(z.path) + ":" + key)
+        return get(z, key)
+
+    t = time.time()
+    with Patch((NpzReader, "__getitem__", spy)):
+        rc = merge_main(tables + ["-o", merged, "-db", prefix, "-t", nwk])
+    if rc != 0:
+        raise RuntimeError("merge failed")
+    secs["merge"] = time.time() - t
+    whole = nwk + ".whole"
+    t = time.time()
+    with Patch((Database, "load_topology",
+                classmethod(lambda cls, p: cls.load(p).ptu))):
+        rc = merge_main(tables + ["-o", merged + ".whole", "-db", prefix,
+                                  "-t", whole])
+    if rc != 0:
+        raise RuntimeError("merge from a whole Database.load failed")
+    secs["merge_whole_load"] = time.time() - t
+    with open(nwk, "rb") as a, open(whole, "rb") as b:
+        same_nwk = a.read() == b.read()
+    msgs = [k for k in read if k.endswith((":msg_up", ":msg_down"))]
+    log(f"[otu] merge -t read {read} in {secs['merge']:.2f} s (a whole "
+        f"Database.load: {secs['merge_whole_load']:.2f} s); newick "
+        f"byte-equal to the whole load's: {same_nwk}")
+    if msgs or not same_nwk:
+        raise AssertionError(f"merge -t read messages {msgs} or its newick "
+                             f"differs from a whole load's ({same_nwk})")
+    return secs
+
+
 def otu_phase():
     """BASELINE config #5's path (assign -> sum -> merge) on the DB files
     the [cli] phase wrote: N_OTU_READS amplicon reads of the same region
@@ -1577,7 +1686,9 @@ def otu_phase():
     host B) and merge -db -t.  Gates of torch_scale_sum.py: the merged
     table equals an independent count of the TSVs' rows by taxon, its
     total the assigned rows; one consensus record of the alignment's
-    width an OTU of each host; the OTU tree names every merged OTU."""
+    width an OTU of each host; the OTU tree names every merged OTU.
+    merge -t reads no message member and writes the newick a whole
+    Database.load gives."""
     import logging
     import torch
     from evolved_inputs import input_tree
@@ -1585,7 +1696,6 @@ def otu_phase():
     from torch_scale_cli import LogStamps
     from torch_scale_sum import (communities, otu_gates, sample_reads,
                                  sum_argv, sum_outputs, write_sample)
-    from hmmufotu_tpu_torch.cli.merge import main as merge_main
     from hmmufotu_tpu_torch.cli.sum import main as sum_main
     d = os.path.join(WORK, "cli")
     prefix = os.path.join(d, "db")
@@ -1635,11 +1745,8 @@ def otu_phase():
         secs[f"sum_{h}"] = time.time() - t
     merged, nwk = os.path.join(d, "otu_merged.tsv"), os.path.join(
         d, "otu_merged.nwk")
-    t = time.time()
-    if merge_main([outs["A"]["-o"], outs["B"]["-o"], "-o", merged, "-db",
-                   prefix, "-t", nwk]) != 0:
-        raise RuntimeError("merge failed")
-    secs["merge"] = time.time() - t
+    secs.update(merge_tree_check([outs["A"]["-o"], outs["B"]["-o"]], prefix,
+                                 merged, nwk))
     gates = otu_gates(tsvs, {"s0": N_CLI_READS, "s1": N_OTU_READS}, outs,
                       merged, nwk, L)
     c = gates["count"]

@@ -56,7 +56,8 @@ def main(argv=None) -> int:
             log.error("-t requires -db")
             return 1
         from ..db import Database
-        tree = Database.load(args.db).ptu
+        # the topology alone: to_newick and the parent walk read no more
+        tree = Database.load_topology(args.db)
         nodes = set()
         for otu_id in merged.otus:
             if otu_id.startswith(args.prefix):

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 
 from .hmm import ProfileHMM
 from .index import CSFMIndex
+from .io.npz import NpzReader
 from .msa import MSA
 from .phylo import PTUnrooted
 
@@ -31,17 +32,33 @@ class Database:
     hmm: ProfileHMM
     ptu: PTUnrooted
 
-    @classmethod
-    def load(cls, prefix: str) -> "Database":
+    @staticmethod
+    def check_files(prefix: str):
         for suf in (MSA_SUFFIX, CSFM_SUFFIX, HMM_SUFFIX, PTU_SUFFIX):
             if not os.path.exists(prefix + suf):
                 raise FileNotFoundError(
                     f"database file '{prefix + suf}' not found")
+
+    @classmethod
+    def load(cls, prefix: str) -> "Database":
+        cls.check_files(prefix)
         msa = MSA.load(prefix + MSA_SUFFIX)
         csfm = CSFMIndex.load(prefix + CSFM_SUFFIX)
         hmm = ProfileHMM.from_hmmer_file(prefix + HMM_SUFFIX)
         ptu = PTUnrooted.load(prefix + PTU_SUFFIX)
         return cls(msa, csfm, hmm, ptu)
+
+    @classmethod
+    def load_topology(cls, prefix: str) -> PTUnrooted:
+        """The tree's topology alone (PTUnrooted.load_topology), after the
+        checks load() makes of the files: all four exist and the three
+        npz files carry their format tags (read from their tags alone)."""
+        cls.check_files(prefix)
+        with NpzReader(prefix + MSA_SUFFIX) as z:
+            MSA.check_format(z, prefix + MSA_SUFFIX)
+        with NpzReader(prefix + CSFM_SUFFIX) as z:
+            CSFMIndex.check_format(z, prefix + CSFM_SUFFIX)
+        return PTUnrooted.load_topology(prefix + PTU_SUFFIX)
 
     def save(self, prefix: str):
         self.msa.save(prefix + MSA_SUFFIX)

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..alphabet import DNA, GAP_BASE
+from ..io.npz import NpzReader, write_npz
 
 SA_SAMPLE_RATE = 4  # reference CSFMIndex.h:133
 _ONE = np.uint64(1)
@@ -431,8 +432,7 @@ class CSFMIndex:
         """Serialize the compact layout (v2).  The rank checkpoints and
         sampled-row prefix popcounts are cheap derived data — rebuilt on
         load from the bit-planes / mark words they summarize."""
-        np.savez_compressed(
-            path,
+        write_npz(path, dict(
             fmt=np.array(["hmmufotu-tpu-csfm-v2"]),
             alphabet=np.array([self.abc.name]),
             cs_len=np.array([self.cs_len]),
@@ -445,18 +445,25 @@ class CSFMIndex:
             bwt_bits=self.bwt_bits,
             sa_mark=self.sa_mark,
             sampled_vals=self.sampled_vals,
-        )
+        ))
+
+    @staticmethod
+    def check_format(z, path: str) -> str:
+        """The format tag of the open npz file z; raise unless it is a
+        CSFM index."""
+        fmt = str(z["fmt"][0]) if "fmt" in z else ""
+        if not fmt.startswith("hmmufotu-tpu-csfm-"):
+            raise ValueError(
+                f"'{path}' is not an hmmufotu-tpu CSFM index "
+                f"(format tag {fmt!r}); rebuild with cli.build")
+        return fmt
 
     @classmethod
     def load(cls, path: str) -> "CSFMIndex":
         from ..alphabet import get_alphabet
         idx = cls()
-        with np.load(path, allow_pickle=False) as z:
-            fmt = str(z["fmt"][0]) if "fmt" in z else ""
-            if not fmt.startswith("hmmufotu-tpu-csfm-"):
-                raise ValueError(
-                    f"'{path}' is not an hmmufotu-tpu CSFM index "
-                    f"(format tag {fmt!r}); rebuild with cli.build")
+        with NpzReader(path) as z:
+            fmt = cls.check_format(z, path)
             idx.abc = get_alphabet(str(z["alphabet"][0]))
             idx.gap_ch = idx.abc.gap_char
             idx.cs_len = int(z["cs_len"][0])

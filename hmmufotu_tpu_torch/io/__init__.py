@@ -1,6 +1,8 @@
 """Interop IO: readers/writers for the reference's binary DB formats.
 
 Counterpart of hmmufotu_tpu/io/__init__.py, on this package's modules.
+npz.py (the port's own) writes and reads the DB's npz files on every
+host core.
 """
 
 from .reference_format import (load_reference_csfm, load_reference_msa,

@@ -20,6 +20,7 @@ import os
 import numpy as np
 
 from .alphabet import DNA, GAP_BASE, DegenAlphabet, get_alphabet
+from .io.npz import NpzReader, write_npz
 from .seq import read_seqs
 
 
@@ -218,24 +219,28 @@ class MSA:
 
     # --- serialization -----------------------------------------------------
     def save(self, path: str):
-        np.savez_compressed(
-            path,
+        write_npz(path, dict(
             fmt=np.array(["hmmufotu-tpu-msa-v1"]),
             alphabet=np.array([self.abc.name]),
             name=np.array([self.name]),
             names=np.array(self.names),
             chars=self.chars,
             is_pruned=np.array([self.is_pruned]),
-        )
+        ))
+
+    @staticmethod
+    def check_format(z, path: str):
+        """Raise unless the open npz file z is an MSA database."""
+        fmt = str(z["fmt"][0]) if "fmt" in z else ""
+        if not fmt.startswith("hmmufotu-tpu-msa-"):
+            raise ValueError(
+                f"'{path}' is not an hmmufotu-tpu MSA database "
+                f"(format tag {fmt!r}); rebuild with cli.build")
 
     @classmethod
     def load(cls, path: str) -> "MSA":
-        with np.load(path, allow_pickle=False) as z:
-            fmt = str(z["fmt"][0]) if "fmt" in z else ""
-            if not fmt.startswith("hmmufotu-tpu-msa-"):
-                raise ValueError(
-                    f"'{path}' is not an hmmufotu-tpu MSA database "
-                    f"(format tag {fmt!r}); rebuild with cli.build")
+        with NpzReader(path) as z:
+            cls.check_format(z, path)
             abc = get_alphabet(str(z["alphabet"][0]))
             msa = cls.from_arrays([str(n) for n in z["names"]], z["chars"],
                                   abc, str(z["name"][0]))

@@ -45,6 +45,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..alphabet import DNA, GAP_BASE
+from ..io.npz import NpzReader, write_npz
 from .dgamma import DiscreteGammaModel
 from .models import SubModel, create_model, load_model
 from .newick import NewickNode
@@ -60,11 +61,6 @@ _TAXON_PREFIXES = ("d__", "k__", "p__", "c__", "o__", "f__", "g__", "s__")
 _LEVEL_PREFIXES = ("k__", "p__", "c__", "o__", "f__", "g__", "s__")
 DEFAULT_ROOT_NAME = "cellular_organisms"
 MAX_PDIST = 0.15                # DNASubModel.cpp:39
-# zlib level of the DB file's members: the messages' deflate, in one
-# thread, is most of a large build's save; level 1 runs it well faster
-# than np.savez_compressed's level 6 for a few percent more bytes
-# (PERF.md section 5)
-SAVE_ZLIB_LEVEL = 1
 
 
 # --------------------------------------------------------------------------
@@ -241,22 +237,6 @@ class PTPlacement:
         if prior_type == "height":
             return -(self.get_anno_dist(tree) - self.wnr + self.height)
         return 0.0
-
-
-def savez_deflated(path: str, **arrays):
-    """The file np.savez_compressed(path, **arrays) writes (the same
-    member names, .npy members, ZIP_DEFLATED, zip64), deflated at zlib
-    level SAVE_ZLIB_LEVEL.  np.load reads it back to the same arrays."""
-    import zipfile
-    from numpy.lib import format as npy_format
-    if not path.endswith(".npz"):
-        path += ".npz"
-    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, allowZip64=True,
-                         compresslevel=SAVE_ZLIB_LEVEL) as zf:
-        for key, val in arrays.items():
-            with zf.open(key + ".npy", "w", force_zip64=True) as fh:
-                npy_format.write_array(fh, np.asanyarray(val),
-                                       allow_pickle=False)
 
 
 # --------------------------------------------------------------------------
@@ -1098,8 +1078,7 @@ class PTUnrooted:
             self.model.write(buf)
             model_txt = buf.getvalue()
         none = np.zeros(0, np.float32)
-        savez_deflated(
-            path,
+        write_npz(path, dict(
             meta=np.array([json.dumps(meta)]),
             parent=self.parent, brlen=self.brlen,
             anno_dist=self.anno_dist, heights=self.heights,
@@ -1110,24 +1089,37 @@ class PTUnrooted:
             msg_down=none if self.msg_down is None
             else np.asarray(self.msg_down, np.float32),
             model_txt=np.array([model_txt]),
-        )
+        ))
+
+    @classmethod
+    def _load_topology(cls, z, path: str):
+        """(a tree of the file's topology: cs_len, root, names, anno,
+        parent, brlen; the file's meta)."""
+        tree = cls()
+        meta = json.loads(str(z["meta"][0]))
+        if not str(meta.get("fmt", "")).startswith("hmmufotu-tpu-ptu-"):
+            raise ValueError(
+                f"'{path}' is not an hmmufotu-tpu PTU database "
+                f"(format tag {meta.get('fmt')!r})")
+        tree.cs_len = meta["cs_len"]
+        tree.root = meta["root"]
+        tree.names = list(meta["names"])
+        tree.anno = list(meta["anno"])
+        tree.parent = z["parent"]
+        tree.brlen = z["brlen"]
+        return tree, meta
+
+    @classmethod
+    def load_topology(cls, path: str) -> "PTUnrooted":
+        """The tree's topology alone (what to_newick and the parent walk
+        read): the file's meta, parent and brlen members, no messages."""
+        with NpzReader(path) as z:
+            return cls._load_topology(z, path)[0]
 
     @classmethod
     def load(cls, path: str) -> "PTUnrooted":
-        tree = cls()
-        with np.load(path, allow_pickle=False) as z:
-            meta = json.loads(str(z["meta"][0]))
-            if not str(meta.get("fmt", "")).startswith(
-                    "hmmufotu-tpu-ptu-"):
-                raise ValueError(
-                    f"'{path}' is not an hmmufotu-tpu PTU database "
-                    f"(format tag {meta.get('fmt')!r})")
-            tree.cs_len = meta["cs_len"]
-            tree.root = meta["root"]
-            tree.names = list(meta["names"])
-            tree.anno = list(meta["anno"])
-            tree.parent = z["parent"]
-            tree.brlen = z["brlen"]
+        with NpzReader(path) as z:
+            tree, meta = cls._load_topology(z, path)
             tree.anno_dist = z["anno_dist"]
             tree.heights = z["heights"]
             tree.seqs = z["seqs"]

@@ -23,7 +23,10 @@ columns).  Steps:
              file's save and its size, peak RSS, device peak;
   3. assign  the assign CLI with its default flags (the whole tree's
              messages on the device) on each read file: host clocks
-             around Database.load, the placer's upload and the stream
+             around Database.load (and by file: .msa.npz, .csfm.npz,
+             .hmm, .ptu.npz; the .ptu.npz by member: msg_up, msg_down,
+             the rest; with the threads the npz reader used), the
+             placer's upload and the stream
              (stream_single), its Processed lines and the rates of the
              first and the last 10 batches, peak RSS, device peak, the
              loaded messages' dtype, the placer's rate count, the TSV's
@@ -288,6 +291,34 @@ def kernel_events():
     return finish
 
 
+def load_clocks(files: dict, members: dict, read: list):
+    """Clock Database.load by file (files[suffix]: MSA, CSFM index, HMM,
+    tree) and the .ptu.npz's reads by member (members: msg_up, msg_down,
+    the rest); read gets the name of every .ptu.npz member read."""
+    from hmmufotu_tpu_torch.hmm import ProfileHMM
+    from hmmufotu_tpu_torch.index import CSFMIndex
+    from hmmufotu_tpu_torch.io.npz import NpzReader
+    from hmmufotu_tpu_torch.msa import MSA
+    from hmmufotu_tpu_torch.phylo import PTUnrooted
+    for owner, name, key in ((MSA, "load", ".msa.npz"),
+                             (CSFMIndex, "load", ".csfm.npz"),
+                             (ProfileHMM, "from_hmmer_file", ".hmm"),
+                             (PTUnrooted, "load", ".ptu.npz")):
+        clock(owner, name, files, key)
+    get = NpzReader.__getitem__
+
+    def timed(z, key):
+        t = time.perf_counter()
+        out = get(z, key)
+        if z.path.endswith(".ptu.npz"):
+            k = key if key in ("msg_up", "msg_down") else "rest"
+            members[k] = members.get(k, 0.0) + time.perf_counter() - t
+            read.append(key)
+        return out
+
+    NpzReader.__getitem__ = timed
+
+
 def child(spec: dict) -> int:
     """One CLI run (spec["cli"]: build, assign, sum or merge) with its
     clocks; prints one JSON line.  After assign, the parity of its first
@@ -296,6 +327,7 @@ def child(spec: dict) -> int:
     CUDA-event milliseconds."""
     import torch
     from hmmufotu_tpu_torch._cuda import resolve_device
+    from hmmufotu_tpu_torch.io.npz import host_threads
     dev = resolve_device(spec["device"])
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else None
@@ -305,6 +337,9 @@ def child(spec: dict) -> int:
     logging.getLogger().addHandler(stamps)
     clocks, held = {}, {}
     kernels = None
+    files, members, read = {}, {}, []
+    if spec["cli"] != "build":
+        load_clocks(files, members, read)
     if spec["cli"] == "build":
         from hmmufotu_tpu_torch.cli.build import main
         from hmmufotu_tpu_torch.hmm import ProfileHMM
@@ -327,9 +362,9 @@ def child(spec: dict) -> int:
         from hmmufotu_tpu_torch.db import Database
         from hmmufotu_tpu_torch.otu import OTUObserved, OTUTable
         from hmmufotu_tpu_torch.phylo import PTUnrooted
-        clock(Database, "load", clocks, "load_s")
         clock(PTUnrooted, "to_newick", clocks, "tree_s")
         if spec["cli"] == "sum":
+            clock(Database, "load", clocks, "load_s")
             main = sum_cli.main
             clock_iter(sum_cli, "parse_assignment_tsv", clocks, "parse_s")
             clock(DNA, "encode_upper", clocks, "encode_s")
@@ -339,6 +374,8 @@ def child(spec: dict) -> int:
             clock(PTUnrooted, "infer_post_cs", clocks, "consensus_s")
         else:
             main = merge.main
+            # merge -t reads the tree's topology alone
+            clock(Database, "load_topology", clocks, "load_s")
             clock(OTUTable, "load_table", clocks, "tables_load_s")
             clock(OTUTable, "__iadd__", clocks, "tables_add_s")
     else:
@@ -376,7 +413,11 @@ def child(spec: dict) -> int:
           else main(spec["argv"], device=spec["device"]))
     out = {"rc": rc, "peak_rss_gb": peak_rss_gb(),
            "device_peak_gb": device_peak_gb(dev),
-           "clocks": clocks, "stamps": stamps.rows}
+           "clocks": clocks, "stamps": stamps.rows,
+           "npz_threads": host_threads()}
+    if spec["cli"] != "build":
+        out.update(load_files_s=files, load_ptu_members_s=members,
+                   ptu_members_read=read)
     if kernels:
         out.update(kernels())
     if "db" in held:

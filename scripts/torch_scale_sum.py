@@ -22,9 +22,10 @@ samples 0 .. S-2, host B sample S-1.  Steps:
              torch, skipped under --reuse-db when --work holds the DB
              files of the same shape;
   3. assign  the assign CLI with its default flags (the whole tree on the
-             card) on each sample: Database.load, upload and stream
-             clocks, reads/s, the Processed timeline and the rates of 10
-             batches after the first and of the last 10, peak RSS, device
+             card) on each sample: Database.load (by file, and the
+             .ptu.npz by member), upload and stream clocks, reads/s,
+             the Processed timeline and the rates of 10 batches after
+             the first and of the last 10, peak RSS, device
              peak, K1-K3 launches and CUDA-event milliseconds, the TSV's
              bytes;
              sample 0 also the parity of its first --parity reads against
@@ -33,7 +34,8 @@ samples 0 .. S-2, host B sample S-1.  Steps:
              (defaults -n 0 -m 0 -q 0): load, parse, encode, accumulate,
              table, consensus and tree clocks, OTUs, peak RSS;
   5. merge   merge A.tsv B.tsv -o merged.tsv -db <prefix> -t merged.nwk:
-             load, the tables' load and +=, tree clocks, peak RSS;
+             load (the tree's topology alone, Database.load_topology),
+             the tables' load and +=, tree clocks, peak RSS;
   6. gates   every CLI exits 0; each sample TSV has --sample-reads rows;
              the merged table equals an independent count of each
              sample's TSV rows by taxon_id (>= 0); its total equals the
@@ -45,9 +47,11 @@ samples 0 .. S-2, host B sample S-1.  Steps:
              where they mean the same); --progress FILE gets the numbers
              so far after each step.
 
-    python scripts/torch_scale_sum.py --leaves 32768 --length 6000 \\
+    python scripts/torch_scale_sum.py --leaves 75000 --length 6000 \\
         --samples 3 --sample-reads 100000 --progress out/torch_scale_sum.json
-(--leaves 50000, the default, is 99,999 nodes.)
+(--leaves 75000 is the gg_97 shape, 149,999 nodes; --leaves 50000, the
+default, is 99,999 nodes.)  `reduced` lists the reads a sample and,
+below 75,000 leaves, the nodes.
 CPU smoke:
     python scripts/torch_scale_sum.py --leaves 64 --length 600 \\
         --region 400 --samples 3 --sample-reads 48 --batch 24 \\
@@ -311,7 +315,8 @@ def main(argv=None) -> int:
     ap.add_argument("--progress", default="",
                     help="JSON file holding the numbers so far")
     ap.add_argument("--why", default="",
-                    help="why --leaves is below the gg_97 shape's")
+                    help="why --leaves is below the gg_97 shape's (the "
+                         "reads' cut and the emulated merge are given)")
     ap.add_argument("--device", default="cuda",
                     help="cuda; cpu only when asked for")
     args = ap.parse_args(argv)
@@ -324,15 +329,22 @@ def main(argv=None) -> int:
     names = [f"s{s}" for s in range(S)]
     hosts = {"A": names[:-1], "B": names[-1:]}
     n_nodes = 2 * args.leaves - 1
+    # the reads are always cut; the nodes where --leaves is below gg_97's
+    cuts = ([("leaves", f"{GG97_NODES:,} nodes", f"{n_nodes:,} nodes")]
+            if n_nodes < GG97_NODES else [])
+    cuts.append(("reads a sample", "100M+ reads", f"{S} x {n:,}"))
     res = {"samples": S, "reads_per_sample": n, "rows_expected": S * n,
            "device": str(dev), "card": card_line(dev),
            "free_total_gb": free_total_gb(), "leaves": args.leaves,
            "length": args.length, "eval_engine": args.eval_engine,
            "hosts": hosts,
-           "reduced": {"what": "leaves; reads a sample",
-                       "from": f"{GG97_NODES:,} nodes; 100M+ reads",
-                       "to": f"{n_nodes:,} nodes; {S} x {n:,}",
-                       "why": args.why}}
+           "reduced": {k: "; ".join(c[i] for c in cuts)
+                       for i, k in enumerate(("what", "from", "to"))}}
+    res["reduced"]["why"] = "; ".join([w for w in [args.why] if w] + [
+        f"{S} x {n:,} reads fit one chip call with the build and every "
+        "load", "the two hosts' merge is emulated on one machine (two "
+        "sums, then merge): neither package has a collective on a CLI "
+        "path"])
     log("reduced " + json.dumps(res["reduced"]))
 
     def progress():

@@ -214,6 +214,13 @@ def test_scale_cli_matches_reference_clis(tmp_path, flags):
         a = got[name]
         assert a["rc"] == 0 and a["reads"] == n == a["tsv_rows"]
         assert set(a["clocks"]) == {"load_s", "upload_s", "stream_s"}
+        # Database.load by file, the .ptu.npz by member
+        files, members = a["load_files_s"], a["load_ptu_members_s"]
+        assert set(files) == set(b["file_bytes"])
+        assert set(members) == {"msg_up", "msg_down", "rest"}
+        assert sum(files.values()) <= a["clocks"]["load_s"]
+        assert sum(members.values()) <= files[".ptu.npz"]
+        assert a["npz_threads"] == b["npz_threads"] > 0
         assert [p[1] for p in a["processed"]] == list(range(24, n + 1, 24))
         assert a["parity_rows"] == a["parity_tsv_rows_equal"] == 8
         assert a["parity_cnode_match"] >= 0.95 * a["parity_reads"] > 0

@@ -87,9 +87,13 @@ def test_harness_runs_and_matches_reference_clis(harness, tmp_path):
     assert got["device"] == "cpu" and got["card"] is None
     assert got["samples"] == 3 and got["reads_per_sample"] == 48
     assert got["rows_expected"] == 144 and got["n_nodes"] == 127
-    assert got["reduced"] == {"what": "leaves; reads a sample",
-                              "from": "149,999 nodes; 100M+ reads",
-                              "to": "127 nodes; 3 x 48", "why": ""}
+    assert got["reduced"] == {
+        "what": "leaves; reads a sample",
+        "from": "149,999 nodes; 100M+ reads", "to": "127 nodes; 3 x 48",
+        "why": "3 x 48 reads fit one chip call with the build and every "
+               "load; the two hosts' merge is emulated on one machine (two "
+               "sums, then merge): neither package has a collective on a "
+               "CLI path"}
     # a quarter of the leaves shared, a quarter each sample's own
     k = got["community_leaves"][0] // 2
     assert 12 <= k <= 16 and got["community_leaves"] == [2 * k] * 3
@@ -126,6 +130,31 @@ def test_harness_runs_and_matches_reference_clis(harness, tmp_path):
         for ours, theirs in moved.items():
             assert body(ours) == body(theirs), ours
             assert len(body(ours)) > 0
+
+
+DB_FILES = {".msa.npz", ".csfm.npz", ".hmm", ".ptu.npz"}
+
+
+def test_load_clocks_by_file_and_member(harness):
+    """Each assign and sum run clocks Database.load by file and the
+    .ptu.npz by member, each sum within the clock around it; merge -t
+    reads the .ptu.npz's topology members alone; every run names the
+    npz threads."""
+    got, _ = harness
+    for r in got["assign"] + list(got["sum"].values()):
+        files, members = r["load_files_s"], r["load_ptu_members_s"]
+        assert set(files) == DB_FILES
+        assert set(members) == {"msg_up", "msg_down", "rest"}
+        assert all(v >= 0 for v in list(files.values())
+                   + list(members.values()))
+        assert sum(files.values()) <= r["clocks"]["load_s"]
+        assert sum(members.values()) <= files[".ptu.npz"]
+        assert r["npz_threads"] == len(os.sched_getaffinity(0))
+    m = got["merge"]
+    assert m["load_files_s"] == {}
+    assert sorted(m["ptu_members_read"]) == ["brlen", "meta", "parent"]
+    assert set(m["load_ptu_members_s"]) == {"rest"}
+    assert m["load_ptu_members_s"]["rest"] <= m["clocks"]["load_s"]
 
 
 def test_reuse_db_skips_the_build(harness, tmp_path):
