@@ -59,10 +59,12 @@ Run from the repository root on a machine with one NVIDIA H100.  Phases:
               sharded_place_batch against the single-device placement,
               sharded_place_batch_tree with the host merge against it too,
               with wall time, reads/s, peak memory and each shard's message
-              bytes; assign --num-processes 2 as two processes on the card
-              over gloo, starting from a build directory without the
-              libraries (both processes build at once), rows byte-equal to
-              the one-process run;
+              bytes; assign --num-processes 2 as two processes over gloo
+              (on the one card; with two cards or more one card a process
+              by CUDA_VISIBLE_DEVICES) on the fixture reads, starting from
+              a build directory without the libraries (both processes
+              build at once), then on the [pe] phase's 512 fixture pairs
+              (the batch loop), rows byte-equal to the one-process run's;
  12. cli      the build CLI writes an evolved DB of 2,048 leaves x 6,000
               columns to files (torch evaluate engine), and the assign CLI
               loads it on the card with its default placer (the whole
@@ -1109,15 +1111,21 @@ def run_cli(argv, device, out, chi):
     return read_rows(out), read_rows(chi)
 
 
+def pair_files(insert):
+    """The [pe] phase's directory and mate files for inserts of mean
+    `insert`."""
+    d = os.path.join(WORK, f"pe{insert}")
+    return d, os.path.join(d, "pe_1.fasta"), os.path.join(d, "pe_2.fasta")
+
+
 def pe_phase(fx, tree, n_pairs, insert):
     """Paired-end assign on n_pairs pairs of 150 bp mates from the port's
     sim (insert size mean `insert`, sd 20): on the card (launches counted
     from 0), then on the CPU, row for row."""
     import torch
     from hmmufotu_tpu_torch.cli.sim import main as sim_main
-    d = os.path.join(WORK, f"pe{insert}")
+    d, r1, r2 = pair_files(insert)
     os.makedirs(d, exist_ok=True)
-    r1, r2 = os.path.join(d, "pe_1.fasta"), os.path.join(d, "pe_2.fasta")
     if sim_main([fx, r1, "-m", r2, "-N", str(n_pairs), "-S", "11",
                  "--mean-size", str(insert), "--sd-size", "20", "-l",
                  "150"]) != 0:
@@ -1919,29 +1927,40 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def parallel_processes(fx, fa, d, plain):
-    """assign --num-processes 2 as two processes on the one card (gloo),
-    from a build directory whose libraries were just removed: both
-    processes build at once, one compiles while the other waits.  The
-    data rows must equal the one-process run's byte for byte."""
+def parallel_processes(fx, reads, d, plain, tag, rebuild=False):
+    """assign --num-processes 2 over gloo on the read files `reads` (one:
+    single-end; two: pairs, through the batch loop): the data rows must
+    equal the one-process run's (`plain`) byte for byte.  On one card
+    both processes share it; with two cards or more each process sees
+    its own (CUDA_VISIBLE_DEVICES).  rebuild: from a build directory
+    whose libraries were just removed, so both processes build at once,
+    one compiles while the other waits."""
+    import torch
     from hmmufotu_tpu_torch import _cuda
-    for name in _cuda.KERNEL_SOURCES:
-        path = _cuda._lib_path(name)
-        if os.path.exists(path):
-            os.remove(path)
-    out, aln = os.path.join(d, "multi.tsv"), os.path.join(d, "aln.fa")
+    if rebuild:
+        for name in _cuda.KERNEL_SOURCES:
+            path = _cuda._lib_path(name)
+            if os.path.exists(path):
+                os.remove(path)
+    out = os.path.join(d, f"multi_{tag}.tsv")
+    aln = os.path.join(d, f"aln_{tag}.fa")
     port = free_port()
-    argv = [fx, fa, "-s", "1", "-b", str(N_FIXTURE_READS // 2), "-o", out,
-            "-a", aln, "--coordinator", f"localhost:{port}",
+    argv = [fx, *reads, "-s", "1", "-b", str(N_FIXTURE_READS // 2), "-o",
+            out, "-a", aln, "--coordinator", f"localhost:{port}",
             "--num-processes", "2"]
-    env = dict(os.environ, PYTHONPATH=REPO)
+    own_card = torch.cuda.device_count() >= 2
+    envs = [dict(os.environ, PYTHONPATH=REPO,
+                 **({"CUDA_VISIBLE_DEVICES": str(pid)} if own_card else {}))
+            for pid in (0, 1)]
+    cards = ("cards 0 and 1, one a process (CUDA_VISIBLE_DEVICES)"
+             if own_card else "card 0, shared")
     t = time.time()
     procs = [subprocess.Popen(
         [sys.executable, "-c",
          "import sys; from hmmufotu_tpu_torch.cli.assign import main; "
          f"sys.exit(main({argv + ['--process-id', str(pid)]!r}))"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for pid in (0, 1)]
+        cwd=REPO, env=envs[pid], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in (0, 1)]
     try:
         res = [p.communicate(timeout=600) + (p.returncode,) for p in procs]
     finally:
@@ -1958,15 +1977,16 @@ def parallel_processes(fx, fa, d, plain):
     files = [os.path.exists(f"{aln}.p{pid}") for pid in (0, 1)]
     built = all(os.path.exists(_cuda._lib_path(n))
                 for n in _cuda.KERNEL_SOURCES)
-    log(f"[parallel] assign --num-processes 2 on one card: {len(rows)} "
-        f"rows in {dt:.1f} s (two processes, each importing torch, "
-        f"loading the DB and both building the kernels from an empty "
-        f"build directory); rows byte-equal to the one-process run: "
-        f"{rows == plain}; --align-out .p0/.p1 present {files}; "
-        f"libraries rebuilt {built}")
-    if rows != plain or not all(files) or not built:
-        raise AssertionError("the two-process run differs from one "
-                             "process")
+    log(f"[parallel] assign --num-processes 2, {tag}, on {cards}: "
+        f"{len(rows)} rows in {dt:.1f} s (two processes, each importing "
+        f"torch and loading the DB"
+        + (", both building the kernels from an empty build directory"
+           if rebuild else "")
+        + f"); rows byte-equal to the one-process run: {rows == plain}; "
+        f"--align-out .p0/.p1 present {files}; libraries built {built}")
+    if rows != plain or not plain or not all(files) or not built:
+        raise AssertionError(f"the two-process run ({tag}) differs from "
+                             "one process")
 
 
 def parallel_phase(fx, fx_reads, sdb, s_reads):
@@ -1977,7 +1997,13 @@ def parallel_phase(fx, fx_reads, sdb, s_reads):
     t = time.time()
     plain = parallel_cli(fx, fa, d)
     parallel_scale(sdb, s_reads[:BATCH])
-    parallel_processes(fx, fa, d, plain)
+    parallel_processes(fx, [fa], d, plain, "single-end", rebuild=True)
+    # the [pe] phase's N_PAIRS fixture pairs, through the batch loop
+    _, *pe = pair_files(400)
+    plain_pe = cli_rows([fx, *pe, "-s", "1", "-b",
+                         str(N_FIXTURE_READS // 2)],
+                        os.path.join(d, "plain_pe.tsv"))
+    parallel_processes(fx, pe, d, plain_pe, "paired-end")
     log(f"[parallel] phase took {time.time() - t:.1f} s")
 
 

@@ -65,6 +65,7 @@ import json
 import logging
 import math
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -81,7 +82,8 @@ sys.path.insert(0, SCRIPTS)
 from evolved_inputs import (FASTA, TAXONOMY, TREE, input_tree,  # noqa
                             simulate_reads, synth_inputs, write_fasta)
 from torch_scale_assign import site_window  # noqa: E402
-from torch_scale_e2e import host_agreement, leaves_window  # noqa: E402
+from torch_scale_e2e import (clip_to_device_window, host_agreement,  # noqa
+                             leaves_window)
 from torch_scale_eval import card_line, device_peak_gb, peak_rss_gb  # noqa
 
 GG97_LEAVES = 75000
@@ -110,6 +112,7 @@ RATE_BATCHES = 10       # batches of the first and last stream rates
 RESIDENT_COLS = 1024    # the site window of assign --resident-window 1024
 RESIDENT_SAMPLE = 128   # the reads it chooses the window from
 READS_SEED = 8          # the reads' rng (synth_inputs' own seed is 7)
+SHAPE_FILE = "db_shape.json"   # the shape of the DB files in a --work
 
 
 def log(msg):
@@ -384,6 +387,9 @@ def child(spec: dict) -> int:
         from hmmufotu_tpu_torch.db import Database
         from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
         main = assign.main
+        # the aligner's stage clocks (hmm.viterbi.TIMING); their one
+        # device wait stands just before a download that waits anyway
+        os.environ["HMMUFOTU_TIMING"] = "1"
         clock(Database, "load", clocks, "load_s",
               keep=lambda db: held.setdefault("db", db))
         clock(DevicePlacer, "__init__", clocks, "upload_s", sync=sync)
@@ -394,9 +400,9 @@ def child(spec: dict) -> int:
             held["placer"] = placer
 
         DevicePlacer.__init__ = init
-        clock(assign, "stream_single", clocks, "stream_s", sync=sync)
+        clock(assign, "write_gathered", clocks, "gather_s")
         stream, P = pl.assign_stream, spec["parity"]
-        seen = SimpleNamespace(alns=[], best=[])
+        seen = SimpleNamespace(alns=[], best=[], paired=False)
 
         def recording(*a, **kw):
             for alns, best in stream(*a, **kw):
@@ -405,16 +411,36 @@ def child(spec: dict) -> int:
                 yield alns, best
 
         pl.assign_stream = recording
+        place_batch = pl.assign_batch_device
+
+        def placing(tree, placer, alns, *a, **kw):
+            # the batch loop's merged pairs, as the device placed them
+            best = place_batch(tree, placer, alns, *a, **kw)
+            seen.paired = True
+            seen.alns.extend(alns[:max(0, P - len(seen.alns))])
+            seen.best.extend(best[:max(0, P - len(seen.best))])
+            return best
+
+        pl.assign_batch_device = placing
+        stages = StreamStages(pl, assign, clocks, sync)
         if spec.get("kernels") and dev.type == "cuda":
             kernels = kernel_events()
     if sync and spec["cli"] in ("build", "assign"):
         torch.cuda.reset_peak_memory_stats(dev)
+    started_at = time.time()
     rc = (main(spec["argv"]) if spec["cli"] in ("sum", "merge")
           else main(spec["argv"], device=spec["device"]))
     out = {"rc": rc, "peak_rss_gb": peak_rss_gb(),
            "device_peak_gb": device_peak_gb(dev),
            "clocks": clocks, "stamps": stamps.rows,
-           "npz_threads": host_threads()}
+           "npz_threads": host_threads(),
+           "torch_threads": torch.get_num_threads(),
+           "cards_seen": torch.cuda.device_count() if sync else 0,
+           "cpu_s": cpu_seconds(), "main_started_at": started_at,
+           "main_returned_at": time.time()}
+    if spec["cli"] == "assign":
+        out.update(stream_stages_s=stages.s, stream_cpu_s=stages.cpu_s,
+                   viterbi_timing_s=stages.timing)
     if spec["cli"] != "build":
         out.update(load_files_s=files, load_ptu_members_s=members,
                    ptu_members_read=read)
@@ -432,42 +458,149 @@ def child(spec: dict) -> int:
     return 0
 
 
+def cpu_seconds() -> float:
+    """User + system CPU seconds of this process so far."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return ru.ru_utime + ru.ru_stime
+
+
+class StreamStages:
+    """Host clocks inside the assign CLI's stream (stream_single, or
+    batch_loop for pairs and --mesh), from wrappers of the functions it
+    calls; the package is not edited.  Each function's seconds are
+    summed on the thread that runs it: in stream_single the seed search
+    (seed_s) and the DP launch (dp_dispatch_s) run on assign_stream's
+    worker thread; the download and alignment strings (strings_s,
+    ViterbiAligner.finalize_batch), the placement's launch and download
+    (place_dispatch_s, place_collect_s), and the time inside the
+    generator (gen_s, its waits for the worker included) on the main
+    thread, whose rest of the stream is the TSV rows (rows_s).  In
+    batch_loop: the alignments (align_s, seed_s in it), the placement
+    (place_s) and the rest (rows_s: orientation, merge, TSV rows).
+    align_out_s: the --align-out records.  Only calls made while the
+    stream runs count (the strand test before it does not); the
+    stream's own clock (clocks["stream_s"]) ends after a device sync.
+    cpu_s is the process's CPU seconds over the stream, timing the
+    aligner's TIMING keys over it."""
+
+    def __init__(self, pl, assign, clocks, sync):
+        from hmmufotu_tpu_torch.hmm import ViterbiAligner
+        from hmmufotu_tpu_torch.hmm import viterbi
+        from hmmufotu_tpu_torch.seq import SeqWriter
+        self.s, self.on, self.cpu_s, self.timing = {}, False, None, {}
+        self.viterbi = viterbi
+        for owner, name, key in (
+                (pl, "batch_find_seed_vpaths", "seed_s"),
+                (ViterbiAligner, "dispatch_batch", "dp_dispatch_s"),
+                (ViterbiAligner, "finalize_batch", "strings_s"),
+                (pl, "dispatch_place_batch", "place_dispatch_s"),
+                (pl, "collect_place_batch", "place_collect_s"),
+                (pl, "align_reads", "align_s"),
+                (pl, "assign_batch_device", "place_s"),
+                (SeqWriter, "write", "align_out_s")):
+            self.wrap(owner, name, key)
+        # assign_stream runs only inside stream_single
+        clock_iter(pl, "assign_stream", self.s, "gen_s")
+        for name in ("stream_single", "batch_loop"):
+            self.stream(assign, name, clocks, sync)
+
+    def wrap(self, owner, name, key):
+        fn = getattr(owner, name)
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if self.on:
+                    self.s[key] = (self.s.get(key, 0.0)
+                                   + time.perf_counter() - t)
+
+        setattr(owner, name, timed)
+
+    def stream(self, owner, name, clocks, sync):
+        fn = getattr(owner, name)
+
+        def timed(*a, **kw):
+            timing0 = dict(self.viterbi.TIMING)
+            cpu0, t = cpu_seconds(), time.perf_counter()
+            self.on = True
+            try:
+                out = fn(*a, **kw)
+                if sync:
+                    sync()
+            finally:
+                self.on = False
+            dt = time.perf_counter() - t
+            clocks["stream_s"] = clocks.get("stream_s", 0.0) + dt
+            self.cpu_s = cpu_seconds() - cpu0
+            self.timing = {k: v - timing0.get(k, 0.0)
+                           for k, v in self.viterbi.TIMING.items()}
+            inner = ("gen_s",) if "gen_s" in self.s \
+                else ("align_s", "place_s")
+            self.s["rows_s"] = dt - sum(self.s.get(k, 0.0) for k in inner)
+            return out
+
+        setattr(owner, name, timed)
+
+
 def parity(pl, tree, seen, tsv) -> dict:
     """The recorded first placements against the exact host path, and
-    against the TSV's rows (the same branch and loglik text)."""
-    rows = tsv_rows(tsv, len(seen.best))
-    n_rows_equal = sum(
-        (b is None and r[10] == "-1") or (b is not None and r[10] ==
-                                          b.get_id() and r[15] ==
-                                          f"{b.loglik:g}")
-        for b, r in zip(seen.best, rows))
+    (single-end reads, one TSV row a read) against the TSV's rows (the
+    same branch and loglik text).  Merged pairs are held against the
+    host path on the columns the device scores (clip_to_device_window),
+    as scripts/torch_scale_e2e.py --paired gates them."""
+    W = min(512, tree.cs_len)
+    alns = seen.alns
+    if seen.paired:
+        alns = [clip_to_device_window(a, W) for a in alns]
+    else:
+        rows = tsv_rows(tsv, len(seen.best))
+        n_rows_equal = sum(
+            (b is None and r[10] == "-1") or (b is not None and r[10] ==
+                                              b.get_id() and r[15] ==
+                                              f"{b.loglik:g}")
+            for b, r in zip(seen.best, rows))
     t = time.perf_counter()
-    got = host_agreement(pl, tree, seen.alns, seen.best,
-                         range(len(seen.alns)), min(512, tree.cs_len),
+    got = host_agreement(pl, tree, alns, seen.best, range(len(alns)), W,
                          SimpleNamespace(max_nseed=pl.DEFAULT_MAX_NSEED),
                          "parity")
     out = {"parity_" + k: v for k, v in got.items()}
     out["t_parity_s"] = time.perf_counter() - t
-    out["parity_tsv_rows_equal"] = int(n_rows_equal)
     out["parity_rows"] = len(seen.best)
+    # a TSV row of a pair is written only for a well oriented one
+    out["parity_tsv_rows_equal"] = None if seen.paired \
+        else int(n_rows_equal)
     return out
 
 
-def run_child(cli: str, argv: list[str], args, tsv: str = "",
-              parity: int | None = None, kernels: bool = False) -> dict:
-    """A CLI run in a process of its own; its JSON line, with its wall
-    seconds and exit code.  parity overrides args.parity; kernels asks
-    an assign run for its kernels' launches and milliseconds."""
+def start_child(cli: str, argv: list[str], args, tsv: str = "",
+                parity: int | None = None, kernels: bool = False,
+                env: dict | None = None, stderr=None):
+    """Start a CLI run in a process of its own (see run_child); env
+    entries are added to this process's environment, stderr is a file
+    for its standard error (default: this process's).  Returns what
+    finish_child takes."""
     spec = {"cli": cli, "argv": argv, "device": args.device,
             "parity": args.parity if parity is None else parity,
             "tsv": tsv, "kernels": kernels}
-    log(f"{cli} {' '.join(argv)}")
-    t = time.perf_counter()
-    p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--child", json.dumps(spec)],
-                       stdout=subprocess.PIPE, text=True)
+    log(f"{cli} {' '.join(argv)}"
+        + (f" ({' '.join(f'{k}={v}' for k, v in env.items())})"
+           if env else ""))
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                          "--child", json.dumps(spec)],
+                         stdout=subprocess.PIPE, stderr=stderr, text=True,
+                         env=dict(os.environ, **env) if env else None)
+    return p, time.perf_counter()
+
+
+def finish_child(started) -> dict:
+    """Wait for a child of start_child; its JSON line, with its wall
+    seconds and exit code (rc None when it printed none)."""
+    p, t = started
+    stdout, _ = p.communicate()
     wall = time.perf_counter() - t
-    lines = p.stdout.strip().splitlines()
+    lines = stdout.strip().splitlines()
     try:
         out = json.loads(lines[-1])
     except (IndexError, ValueError):
@@ -477,7 +610,46 @@ def run_child(cli: str, argv: list[str], args, tsv: str = "",
     return out
 
 
+def run_child(cli: str, argv: list[str], args, tsv: str = "",
+              parity: int | None = None, kernels: bool = False) -> dict:
+    """A CLI run in a process of its own; its JSON line, with its wall
+    seconds and exit code.  parity overrides args.parity; kernels asks
+    an assign run for its kernels' launches and milliseconds."""
+    return finish_child(start_child(cli, argv, args, tsv, parity,
+                                    kernels))
+
+
 # ---------------------------------------------------------------------------
+
+def build_db(args, d: str, reuse: bool = False) -> tuple[str, dict]:
+    """The build CLI (-s GTR --msg-dtype f32 --eval-engine
+    args.eval_engine) on synth_inputs' files in d, in a process of its
+    own: (the DB prefix, the build's numbers).  reuse: skip it when d
+    holds the four DB files of this shape (d/db_shape.json), as a
+    successful build leaves them."""
+    prefix = os.path.join(d, "db")
+    shape = {"leaves": args.leaves, "length": args.length,
+             "eval_engine": args.eval_engine}
+    shape_path = os.path.join(d, SHAPE_FILE)
+    have = db_file_bytes(prefix)
+    if reuse and len(have) == 4 and os.path.exists(shape_path) \
+            and json.load(open(shape_path)) == shape:
+        log("build: reusing " + prefix)
+        return prefix, {"reused": True, "rc": 0, "file_bytes": have}
+    if os.path.exists(shape_path):
+        os.unlink(shape_path)
+    b = run_child("build", [
+        os.path.join(d, FASTA), os.path.join(d, TREE), "-a",
+        os.path.join(d, TAXONOMY), "-n", prefix, "-s", "GTR",
+        "--msg-dtype", "f32", "--eval-engine", args.eval_engine], args)
+    b["stages_s"] = stage_seconds(b.pop("stamps", []))
+    b["file_bytes"] = db_file_bytes(prefix)
+    log("build: " + json.dumps(b))
+    if b["rc"] == 0:
+        with open(shape_path, "w") as fh:
+            json.dump(shape, fh)
+    return prefix, b
+
 
 def free_total_gb() -> int | None:
     """The total of `free -g`'s Mem line."""

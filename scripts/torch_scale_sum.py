@@ -76,16 +76,15 @@ SCRIPTS = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 sys.path.insert(0, SCRIPTS)
 
-from evolved_inputs import (FASTA, READ_LEN, TAXONOMY, TREE,  # noqa: E402
-                            input_tree, simulate_reads, synth_inputs)
+from evolved_inputs import (READ_LEN, input_tree,  # noqa: E402
+                            simulate_reads, synth_inputs)
 from torch_scale_assign import site_window  # noqa: E402
-from torch_scale_cli import (db_file_bytes, free_total_gb, log,  # noqa
-                             run_child, stage_seconds, stream_rates)
+from torch_scale_cli import (build_db, free_total_gb, log,  # noqa: E402
+                             run_child, stream_rates)
 from torch_scale_eval import card_line  # noqa: E402
 
 GG97_NODES = 149999
 OTU_PREFIX = "OTU_"        # the sum CLI's default -p
-SHAPE_FILE = "db_shape.json"
 COMMUNITY_LEAVES = 1000    # leaves every sample shares; and its own
 
 
@@ -388,33 +387,11 @@ def main(argv=None) -> int:
     progress()
 
     # ---- 2. build -------------------------------------------------------
-    prefix = os.path.join(d, "db")
-    shape = {"leaves": args.leaves, "length": args.length,
-             "eval_engine": args.eval_engine}
-    shape_path = os.path.join(d, SHAPE_FILE)
-    have = db_file_bytes(prefix)
-    if args.reuse_db and len(have) == 4 and os.path.exists(shape_path) \
-            and json.load(open(shape_path)) == shape:
-        res["build"] = {"reused": True, "rc": 0, "file_bytes": have}
-        log("build: reusing " + prefix)
-    else:
-        if os.path.exists(shape_path):
-            os.unlink(shape_path)
-        b = run_child("build", [
-            os.path.join(d, FASTA), os.path.join(d, TREE), "-a",
-            os.path.join(d, TAXONOMY), "-n", prefix, "-s", "GTR",
-            "--msg-dtype", "f32", "--eval-engine", args.eval_engine], args)
-        b["stages_s"] = stage_seconds(b.pop("stamps", []))
-        b["file_bytes"] = db_file_bytes(prefix)
-        res["build"] = b
-        log("build: " + json.dumps(b))
-        if b["rc"] != 0:
-            progress()
-            print(json.dumps(res))
-            return 1
-        with open(shape_path, "w") as fh:
-            json.dump(shape, fh)
+    prefix, res["build"] = build_db(args, d, args.reuse_db)
     progress()
+    if res["build"]["rc"] != 0:
+        print(json.dumps(res))
+        return 1
 
     # ---- 3. assign, once a sample ---------------------------------------
     fails = []

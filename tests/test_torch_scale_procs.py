@@ -1,0 +1,226 @@
+"""scripts/torch_scale_procs.py (`assign --num-processes N` through the
+port's CLIs, N processes against one) at a tiny shape on the CPU, the
+gathered rows against the reference package's assign CLI on the same DB
+files, and the harness's arithmetic on hand-made numbers.
+
+The reference CLI computes the placements in f32 in another order, so
+its rows are held by the rules of tests/test_torch_cli_flags.py (the
+same ids and alignment columns byte for byte; the same branch and taxon
+with logliks within 1e-4 relative + 0.5, except a near tie, at most one
+in 24 reads); the N-process rows are held byte-equal to one process's."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from test_torch_scale_cli import assert_tsv_agree, tsv_rows
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPTS = os.path.join(REPO, "scripts")
+SHAPE = ["--leaves", "64", "--length", "600", "--reads", "256",
+         "--pairs", "64", "--processes", "1,2", "--eval-engine", "numpy",
+         "--device", "cpu", "--parity", "32"]
+PER_PROCESS = {"rc", "exit", "wall_s", "clocks", "load_files_s",
+               "load_ptu_members_s", "peak_rss_gb", "device_peak_gb",
+               "cpu_s", "stream_cpu_s", "torch_threads", "npz_threads",
+               "cards_seen", "stream_stages_s", "viterbi_timing_s",
+               "aborted", "abort_after_rows", "abort_lines", "processed"}
+PER_N = {"processes", "reads", "stream_s", "stream_gather_s", "wall_s",
+         "reads_per_s_stream",
+         "reads_per_s_wall", "efficiency_stream", "efficiency_wall",
+         "cpu_s", "align_out", "rows"}
+
+
+@pytest.fixture(scope="module")
+def scripts_path():
+    sys.path.insert(0, SCRIPTS)
+    yield
+    sys.path.remove(SCRIPTS)
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    """One CPU run of the harness at the tiny shape: its JSON line and
+    work directory."""
+    work = tmp_path_factory.mktemp("procs")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, os.path.join(SCRIPTS, "torch_scale_procs.py")]
+        + SHAPE + ["--work", str(work), "--progress",
+                   str(work / "p.json")],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert json.load(open(work / "p.json")) == got
+    return got, work
+
+
+def test_harness_result(harness):
+    got, _ = harness
+    assert got["device"] == "cpu" and got["card"] is None
+    assert got["cards"] == 0 and got["nproc"] > 0
+    assert got["free_total_gb"] > 0 and got["n_nodes"] == 127
+    assert got["fails"] == [] and got["skipped"] == []
+    assert got["aborts"] == []
+    assert got["reduced"]["to"] == ("127 nodes; 256 reads, 64 pairs; "
+                                    "processes of one host, 2 at most")
+    assert set(got["build"]["file_bytes"]) == {".msa.npz", ".csfm.npz",
+                                               ".hmm", ".ptu.npz"}
+
+
+@pytest.mark.parametrize("mode,reads", [("se", 256), ("pe", 64)])
+def test_harness_runs(harness, mode, reads):
+    """Per-process and per-N fields of each run; two processes' gathered
+    rows byte-equal to one process's; parity in process 0 of N = 1."""
+    got, _ = harness
+    runs = got[mode]
+    assert set(runs) == {"1", "2"}
+    for n, r in runs.items():
+        n = int(n)
+        assert PER_N <= set(r) and r["fails"] == []
+        assert r["processes"] == n and r["reads"] == reads
+        assert len(r["procs"]) == n
+        assert r["reads_per_s_stream"] == reads / r["stream_gather_s"]
+        assert r["stream_gather_s"] >= r["stream_s"]
+        for p in r["procs"]:
+            assert PER_PROCESS <= set(p)
+            assert p["rc"] == p["exit"] == 0 and not p["aborted"]
+            assert {"load_s", "upload_s", "stream_s"} <= set(p["clocks"])
+            assert ("gather_s" in p["clocks"]) == (n > 1)
+            assert 0 < p["stream_cpu_s"] <= p["cpu_s"]
+            assert p["torch_threads"] == 1 and p["npz_threads"] > 0
+            stages = p["stream_stages_s"]
+            inner = {"gen_s", "place_dispatch_s", "place_collect_s"} \
+                if mode == "se" else {"align_s", "place_s"}
+            assert inner | {"seed_s", "strings_s", "rows_s"} <= set(stages)
+            assert p["viterbi_timing_s"]["host_build"] > 0
+        names = ([f"{mode}_n1.aln.fa"] if n == 1 else
+                 [f"{mode}_n2.aln.fa.p0", f"{mode}_n2.aln.fa.p1"])
+        assert r["align_out"] == dict.fromkeys(names, True)
+    one, two = runs["1"], runs["2"]
+    assert two["rows_equal"] and two["rows_differ"] == 0
+    assert two["rows"] == two["rows_ref"] == one["rows"]
+    assert one["rows"] == reads if mode == "se" else one["rows"] <= reads
+    p0 = one["procs"][0]
+    assert p0["parity_reads"] >= 0.9 * 32
+    assert p0["parity_cnode_match"] >= 0.95 * p0["parity_reads"]
+    assert p0["parity_loglik_match"] >= 0.95 * p0["parity_reads"]
+    assert all("parity_reads" not in p for p in two["procs"])
+    # process 0's shard starts at read 0, process 1's after it
+    assert sum(p["processed"][-1][1] for p in two["procs"]) == reads
+
+
+def test_two_processes_match_reference_cli(harness, tmp_path):
+    """The N = 2 gathered TSV against the reference package's assign CLI
+    run as one process on the same DB files (read by np.load)."""
+    from hmmufotu_tpu.cli.assign import main as ref_assign
+    _, work = harness
+    want = str(tmp_path / "ref.tsv")
+    assert ref_assign([str(work / "db"), str(work / "reads.fasta"), "-o",
+                       want]) == 0
+    got = tsv_rows(work / "se_n2.tsv")
+    assert len(got) == 256
+    assert_tsv_agree(got, tsv_rows(want))
+
+
+def proc(stream_s, returned_at, gather_s=None):
+    clocks = {"stream_s": stream_s}
+    if gather_s is not None:
+        clocks["gather_s"] = gather_s
+    return {"clocks": clocks, "main_returned_at": returned_at}
+
+
+def test_rates_and_efficiency(scripts_path):
+    from torch_scale_procs import rates
+    one = rates(1, 1000, [proc(10.0, 120.0)], 100.0, None)
+    assert one["reads_per_s_stream"] == 100.0
+    assert one["reads_per_s_wall"] == 50.0
+    assert one["efficiency_stream"] == one["efficiency_wall"] == 1.0
+    # the slowest stream + gather sets the stream rate (process 0 writes
+    # the TSV in its gather at N > 1, the stream itself at N = 1), the
+    # last return the wall
+    three = rates(3, 1000, [proc(4.0, 110.0, 1.0), proc(4.5, 125.0, 0.1),
+                            proc(2.0, 105.0, 0.5)], 100.0, one)
+    assert three["stream_s"] == 4.5 and three["wall_s"] == 25.0
+    assert three["stream_gather_s"] == 5.0
+    assert three["reads_per_s_stream"] == 200.0
+    assert three["efficiency_stream"] == pytest.approx(200.0 / 300.0)
+    assert three["efficiency_wall"] == pytest.approx(40.0 / 150.0)
+
+
+def test_skip_arithmetic(scripts_path):
+    from torch_scale_procs import skip_reason
+    # 65,535 nodes on one card: three fit, four do not (4 x 22 > 76)
+    assert skip_reason(3, 20.0, 21.0, 101, True) is None
+    got = skip_reason(4, 20.0, 21.0, 101, True)
+    assert set(got) == {"processes", "card"}
+    assert got["card"]["need_gb"] == 88.0
+    # 149,999 nodes: 3 x 37.25 + 5 > 101 GB; each process its own card
+    got = skip_reason(3, 37.25, 42.07, 101, False)
+    assert set(got) == {"processes", "host"}
+    assert got["host"]["need_gb"] == pytest.approx(116.75)
+    assert skip_reason(4, 37.25, 42.07, 377, False) is None
+    assert skip_reason(2, 37.25, None, None, True) is None
+
+
+def test_abort_scan(scripts_path):
+    from torch_scale_procs import abort_scan
+    clean = abort_scan("INFO: Processed 256 reads\n", 0, 0)
+    assert clean == {"abort_lines": [], "aborted": False,
+                     "abort_after_rows": False}
+    # the gloo exit abort: rows written (the CLI returned 0), then
+    # SIGABRT at interpreter exit
+    err = ("INFO: Assigned 128 of 128 reads\n"
+           "terminate called without an active exception\n")
+    got = abort_scan(err, 0, -6)
+    assert got["aborted"] and got["abort_after_rows"]
+    assert got["abort_lines"] == ["terminate called without an active "
+                                  "exception"]
+    # a failure before the rows: no JSON line (rc None), non-zero exit
+    got = abort_scan("Traceback ...\nRuntimeError: x\n", None, 1)
+    assert not got["aborted"] and not got["abort_after_rows"]
+    got = abort_scan("Fatal Python error: Segmentation fault\n", None, -11)
+    assert got["aborted"] and not got["abort_after_rows"]
+
+
+def test_child_env(scripts_path):
+    """--card-per-process: child i sees card i alone; the --mesh run's
+    one process sees every card."""
+    from torch_scale_procs import child_env
+    assert child_env(2, True, False) == {"CUDA_VISIBLE_DEVICES": "2"}
+    assert child_env(0, True, True) is None
+    assert child_env(1, False, False) is None
+
+
+def test_rows_compare(scripts_path, tmp_path):
+    from torch_scale_procs import rows_compare
+    head = "# command: x\nid\tdescription\n"
+    a, b, c = (tmp_path / f"{k}.tsv" for k in "abc")
+    a.write_text(head + "r0\t1\nr1\t2\n")
+    b.write_text("# command: y\nid\tdescription\nr0\t1\nr1\t2\n")
+    c.write_text(head + "r0\t1\nr1\t3\nr2\t4\n")
+    assert rows_compare(str(a), str(b)) == {
+        "rows": 2, "rows_ref": 2, "rows_differ": 0, "rows_equal": True}
+    got = rows_compare(str(c), str(a))
+    assert got == {"rows": 3, "rows_ref": 2, "rows_differ": 2,
+                   "rows_equal": False}
+
+
+def test_failed_child_stops_the_run(scripts_path):
+    """A child that exits non-zero leaves the others `grace` seconds,
+    then they are killed: no run waits out gloo's timeout, and each
+    child's failure shows (rc None: no JSON line)."""
+    import time
+    from torch_scale_procs import finish_all
+    t = time.perf_counter()
+    children = [(subprocess.Popen([sys.executable, "-c", code],
+                                  stdout=subprocess.PIPE, text=True), t)
+                for code in ("import sys; sys.exit(3)",
+                             "import time; time.sleep(120)")]
+    got = finish_all(children, grace=1.0)
+    assert time.perf_counter() - t < 60
+    assert [g["exit"] for g in got] == [3, -9]
+    assert [g["rc"] for g in got] == [None, None]
