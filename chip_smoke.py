@@ -1164,11 +1164,14 @@ def chimera_phase(fx, tree):
     bacterium at the same ungapped offset) and N_CHIMERA_CLEAN reads
     simulated from the bacterium, its clean control (tests/test_pipeline.py
     TestChimera), on the card and on the CPU: segment placement is host
-    f64 in both, so the rows agree byte for byte.  (Windows of the
-    archaeon, an isolated leaf of this DB, are flagged at the default lod
-    0 by both packages: the reference algorithm's, not a fault.)"""
+    f64 in both, so the rows agree byte for byte.  The card run builds no
+    DevicePlacer (its __init__ calls counted) and holds only the
+    aligner's memory.  (Windows of the archaeon, an isolated leaf of this
+    DB, are flagged at the default lod 0 by both packages: the reference
+    algorithm's, not a fault.)"""
     import torch
     from evolved_inputs import simulate_reads
+    from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
     d = os.path.join(WORK, "chimera")
     os.makedirs(d, exist_ok=True)
     leaves = [u for u in range(tree.num_nodes)
@@ -1187,12 +1190,27 @@ def chimera_phase(fx, tree):
     with open(reads, "w") as fh:
         fh.write("".join(f">{rid}\n{s}\n" for rid, s in recs))
     argv = [fx, reads, "-C", "-S", "0", "-s", "1"]
+    built = []
+    init = DevicePlacer.__init__
+
+    def counted(placer, *a, **kw):
+        built.append(1)
+        init(placer, *a, **kw)
+
+    DevicePlacer.__init__ = counted
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     cnt = reset_counters()
     t = time.time()
-    gpu = run_cli(argv, "cuda", os.path.join(d, "gpu.tsv"),
-                  os.path.join(d, "gpu_chi.tsv"))
-    torch.cuda.synchronize()
+    try:
+        gpu = run_cli(argv, "cuda", os.path.join(d, "gpu.tsv"),
+                      os.path.join(d, "gpu_chi.tsv"))
+        torch.cuda.synchronize()
+    finally:
+        DevicePlacer.__init__ = init
     dt = time.time() - t
+    peak = torch.cuda.max_memory_allocated() - held
     launches = {k: cnt[k].n for k in MAIN_KERNELS}
     t = time.time()
     cpu = run_cli(argv, "cpu", os.path.join(d, "cpu.tsv"),
@@ -1206,9 +1224,14 @@ def chimera_phase(fx, tree):
         f"{flagged}; main and chimera rows equal to the CPU run's: "
         f"{gpu == cpu}; lod of the chimera {lod.get('chimera', math.nan):g}, "
         f"largest of the clean reads {max(clean, default=math.nan):g}; "
-        f"finite lods {sum(map(math.isfinite, lod.values()))} of {len(lod)}")
+        f"finite lods {sum(map(math.isfinite, lod.values()))} of {len(lod)}; "
+        f"DevicePlacers built {len(built)}; device peak of the run "
+        f"{peak / 2**30:.3f} GiB beyond the {held / 2**30:.3f} GiB held "
+        "before it")
     if launches["viterbi_traced"] <= 0:
         raise AssertionError("assign -C did not launch K1")
+    if built:
+        raise AssertionError("assign -C built a DevicePlacer")
     if gpu != cpu or flagged != ["chimera"]:
         raise AssertionError("chimera run wrong or different from the CPU")
 

@@ -329,10 +329,10 @@ def main(argv=None, device="cuda") -> int:
             for r in fwd_reads:
                 r.seq = DNA.revcom(r.seq)
 
-    # device placer for the batched SEP path (chimera checking places
-    # on the host per segment)
+    # device placer for the batched SEP path; none under -C, whose chimera
+    # check and the placement after it are host f64
     placer = None
-    if not args.align_only:
+    if not args.align_only and not args.chimera:
         import torch
         from ..phylo.placement import DevicePlacer
         site_window = None

@@ -422,7 +422,8 @@ def child(spec: dict) -> int:
             return best
 
         pl.assign_batch_device = placing
-        stages = StreamStages(pl, assign, clocks, sync)
+        stages = StreamStages(pl, assign, clocks, sync,
+                              chimera="-C" in spec["argv"])
         if spec.get("kernels") and dev.type == "cuda":
             kernels = kernel_events()
     if sync and spec["cli"] in ("build", "assign"):
@@ -476,19 +477,27 @@ class StreamStages:
     generator (gen_s, its waits for the worker included) on the main
     thread, whose rest of the stream is the TSV rows (rows_s).  In
     batch_loop: the alignments (align_s, seed_s in it), the placement
-    (place_s) and the rest (rows_s: orientation, merge, TSV rows).
+    (place_s) and the rest (rows_s: orientation, merge, TSV rows); with
+    chimera (an assign -C run) the placement is on the host, and its
+    clocks are those of the seed search over every node
+    (get_seed_s), the chimera check (chimera_s; in it the segments'
+    estimate, filter and place, chimera_segments_s, and besides them the
+    two alternatives and the segments' seed p-distances) and the whole
+    read's estimate, filter and place after it (host_sep_s).
     align_out_s: the --align-out records.  Only calls made while the
     stream runs count (the strand test before it does not); the
     stream's own clock (clocks["stream_s"]) ends after a device sync.
     cpu_s is the process's CPU seconds over the stream, timing the
     aligner's TIMING keys over it."""
 
-    def __init__(self, pl, assign, clocks, sync):
+    def __init__(self, pl, assign, clocks, sync, chimera=False):
         from hmmufotu_tpu_torch.hmm import ViterbiAligner
         from hmmufotu_tpu_torch.hmm import viterbi
         from hmmufotu_tpu_torch.seq import SeqWriter
         self.s, self.on, self.cpu_s, self.timing = {}, False, None, {}
+        self.in_chimera = False
         self.viterbi = viterbi
+        self.inner = ("align_s", "place_s")
         for owner, name, key in (
                 (pl, "batch_find_seed_vpaths", "seed_s"),
                 (ViterbiAligner, "dispatch_batch", "dp_dispatch_s"),
@@ -499,12 +508,36 @@ class StreamStages:
                 (pl, "assign_batch_device", "place_s"),
                 (SeqWriter, "write", "align_out_s")):
             self.wrap(owner, name, key)
+        if chimera:
+            self.chimera(pl, assign)
         # assign_stream runs only inside stream_single
         clock_iter(pl, "assign_stream", self.s, "gen_s")
         for name in ("stream_single", "batch_loop"):
             self.stream(assign, name, clocks, sync)
 
-    def wrap(self, owner, name, key):
+    def chimera(self, pl, assign):
+        """-C's host placement: get_seed_s, chimera_s, and the host SEP
+        split by whether check_chimera runs (chimera_segments_s, else
+        host_sep_s)."""
+        self.wrap(pl, "get_seed", "get_seed_s")
+        for name in ("estimate_seq", "filter_placements", "place_seq"):
+            self.wrap(pl, name, "host_sep_s", "chimera_segments_s")
+        check = assign.check_chimera
+
+        def checking(*a, **kw):
+            self.in_chimera = True
+            try:
+                return check(*a, **kw)
+            finally:
+                self.in_chimera = False
+
+        assign.check_chimera = checking
+        self.wrap(assign, "check_chimera", "chimera_s")
+        self.inner += ("get_seed_s", "chimera_s", "host_sep_s")
+
+    def wrap(self, owner, name, key, chimera_key=None):
+        """Sum owner.name's seconds under key, or under chimera_key
+        (where given) while check_chimera runs."""
         fn = getattr(owner, name)
 
         def timed(*a, **kw):
@@ -512,9 +545,9 @@ class StreamStages:
             try:
                 return fn(*a, **kw)
             finally:
+                k = chimera_key if chimera_key and self.in_chimera else key
                 if self.on:
-                    self.s[key] = (self.s.get(key, 0.0)
-                                   + time.perf_counter() - t)
+                    self.s[k] = self.s.get(k, 0.0) + time.perf_counter() - t
 
         setattr(owner, name, timed)
 
@@ -536,8 +569,7 @@ class StreamStages:
             self.cpu_s = cpu_seconds() - cpu0
             self.timing = {k: v - timing0.get(k, 0.0)
                            for k, v in self.viterbi.TIMING.items()}
-            inner = ("gen_s",) if "gen_s" in self.s \
-                else ("align_s", "place_s")
+            inner = ("gen_s",) if "gen_s" in self.s else self.inner
             self.s["rows_s"] = dt - sum(self.s.get(k, 0.0) for k in inner)
             return out
 
@@ -576,12 +608,14 @@ def parity(pl, tree, seen, tsv) -> dict:
 
 def start_child(cli: str, argv: list[str], args, tsv: str = "",
                 parity: int | None = None, kernels: bool = False,
-                env: dict | None = None, stderr=None):
+                env: dict | None = None, stderr=None,
+                device: str | None = None):
     """Start a CLI run in a process of its own (see run_child); env
     entries are added to this process's environment, stderr is a file
-    for its standard error (default: this process's).  Returns what
-    finish_child takes."""
-    spec = {"cli": cli, "argv": argv, "device": args.device,
+    for its standard error (default: this process's), device overrides
+    args.device.  Returns what finish_child takes."""
+    spec = {"cli": cli, "argv": argv,
+            "device": args.device if device is None else device,
             "parity": args.parity if parity is None else parity,
             "tsv": tsv, "kernels": kernels}
     log(f"{cli} {' '.join(argv)}"

@@ -1,5 +1,7 @@
 """`assign --num-processes N` at size through the PyTorch port's CLIs:
-N processes a run, on one card or one card each, against one process.
+N processes a run, on one card or one card each, against one process;
+single-end reads, pairs, and single-end reads with chimera checking
+(`assign -C`).
 
 Each process of `assign --coordinator H:P --num-processes N --process-id
 I` loads the whole DB, takes a contiguous shard of the reads, keeps its
@@ -14,11 +16,16 @@ holds the gathered rows against one process's.  Steps:
              of one REGION_COLS-column region (2% substitutions), and
              --pairs pairs of 2 x 250 bp mates from leaf fragments of
              N(500, 30^2) columns in the same region
-             (torch_scale_e2e.simulate_pairs), as two FASTA files; on a
-             card the kernels are built here, before any CLI starts;
+             (torch_scale_e2e.simulate_pairs), as two FASTA files;
+             --chimera-reads reads of the same region, every tenth a
+             planted chimera of two leaves (simulate_chimera_reads, the
+             truth in each description); on a card the kernels are
+             built here, before any CLI starts;
   2. build   the build CLI (-s GTR --msg-dtype f32 --eval-engine torch);
   3. runs    single-end reads at each N of --processes, then the pairs at
-             each N of --pair-processes, N = 1 first: N assign children
+             each N of --pair-processes, then the -C reads at each N of
+             --chimera-processes (CHIMERA_ARGV and --chimera-out; .p<i>
+             at N > 1), N = 1 first: N assign children
              started at once, each `main(argv + --num-processes N
              --process-id i --coordinator 127.0.0.1:<free port>)` with -a
              (its --align-out file gets the suffix .p<i> at N > 1); with
@@ -32,8 +39,16 @@ holds the gathered rows against one process's.  Steps:
              --align-out files present; process 0 of each N = 1 run
              holds its first --parity placements against the exact host
              path (torch_scale_cli's parity; at N > 1 the rows are held
-             byte-equal to those, and parity is 0).  Any failure: rc 1.
-             Nothing falls back to the CPU or to one process;
+             byte-equal to those, and parity is 0).  -C runs instead:
+             no DevicePlacer built (no upload_s), K1 launched and K2, K3
+             never in every process, main plus chimera rows one a read,
+             the .p<i> chimera files' rows in turn byte-equal to the N
+             = 1 file's, and the first CHIMERA_PARITY reads run again
+             through the CLI on the CPU (chimera_cpu) with rows
+             byte-equal to the card's, but at most CHIMERA_ALN_TIES
+             reads whose alignment differs (a D-chain tie), named.  Any
+             failure: rc 1.  Nothing falls back to the CPU or to one
+             process;
   5. guards  an N is skipped, with its numbers in `skipped`, when N x
              (the N = 1 run's peak RSS) + 5 GB exceeds `free -g`'s total
              or, with the card shared, N x (its device peak + 1 GB)
@@ -48,20 +63,23 @@ peak, CPU seconds (user + system, over the process and over its
 stream), torch's threads and the npz reader's, K1-K3 launches and
 CUDA-event ms, and whether its standard error holds an abort
 (`terminate called`, ...) or it exited non-zero after its rows were
-written (abort_after_rows).  Per N: reads_per_s_stream (reads over the
+written (abort_after_rows); s_per_read, and for -C the seconds a read
+by stage (chimera_split).  Per N: reads_per_s_stream (reads over the
 slowest process's stream_s + gather_s: at N = 1 the stream writes the
 TSV itself, at N > 1 process 0 writes it in gather_s, so every N is
 clocked over the same work), reads_per_s_wall (reads over the seconds
 from the launch to the last process's return from the CLI; process 0's
 parity after it is not counted), each one's efficiency rate(N) / (N x
 rate(1)), rows_equal and the --align-out files.  Every assign child
-runs with -a, HMMUFOTU_TIMING=1 and torch_scale_cli's stage wrappers.  One JSON line, the
-last the script prints, with every number, the card line, nproc,
+runs with -a, HMMUFOTU_TIMING=1 and torch_scale_cli's stage wrappers.
+After the -C runs: the detection of the planted chimeras by the parents'
+p-distance (`chimera_detection`) and the CPU run (`chimera_cpu`).  One
+JSON line, the last the script prints, with every number, the card line, nproc,
 `free -g`'s total and the card count; --progress FILE gets the numbers
 so far after each run.
 
-One H100, 65,535 nodes (two processes at 149,999 nodes do not fit one
-card):
+One H100, 65,535 nodes (two processes that place on the card at 149,999
+nodes do not fit it):
     python scripts/torch_scale_procs.py --leaves 32768 --length 6000 \\
         --reads 400000 --pairs 50000 --processes 1,2,3 \\
         --progress out/procs.json
@@ -69,10 +87,16 @@ Four H100s, the gg_97 shape, one process a card, and --mesh:
     python scripts/torch_scale_procs.py --leaves 75000 --length 6000 \\
         --reads 100000 --pairs 20000 --processes 1,2,4 \\
         --card-per-process --mesh --progress out/procs4.json
+One H100, the gg_97 shape, assign -C in one process and in two sharing
+the card (--reads 0: no single-end runs):
+    python scripts/torch_scale_procs.py --leaves 75000 --length 6000 \\
+        --reads 0 --pair-processes '' --chimera-reads 256 \\
+        --chimera-processes 1,2 --progress out/chim.json
 CPU smoke:
     python scripts/torch_scale_procs.py --leaves 64 --length 600 \\
         --reads 256 --pairs 64 --processes 1,2 --eval-engine numpy \\
         --device cpu --work /tmp/procs
+    (-C: --reads 0 --pair-processes '' --chimera-reads 40)
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -113,6 +137,19 @@ DEVICE_MARGIN_GB = 1              # a process's context and allocator slack
 CARD_BUDGET_GB = 76               # of the 80 GB card, for N shared processes
 PARITY_GATE = 0.95
 GRACE_S = 120.0                   # a failed child's siblings' time to end
+# assign -C runs: every CHIMERA_EVERY-th read a planted chimera whose
+# 5' part is CHIMERA_BREAK of the read; -s 1 skips the strand test (a
+# shard's strand cannot differ), -b 64 gives the rate several batches
+CHIMERA_READS = 256               # -C reads of the at-size run; fewer is a cut
+CHIMERA_SEED = 10
+CHIMERA_EVERY = 10
+CHIMERA_BREAK = (0.3, 0.7)
+CHIMERA_ARGV = ["-C", "-s", "1", "-b", "64"]
+PDIST_BINS = (0.03, 0.10)         # parents' p-distance: < 3%, 3-10%, >= 10%
+BIN_NAMES = ("pdist<3%", "pdist3-10%", "pdist>=10%")
+CHIMERA_PARITY = 32               # first -C reads run again on the CPU
+CHIMERA_ALN_TIES = 1              # alignments a D-chain tie may change, of
+#                                   the CHIMERA_PARITY reads
 # standard-error marks of a process that aborted
 ABORT_MARKS = ("terminate called", "Aborted", "core dumped",
                "Segmentation fault", "Fatal Python error")
@@ -206,10 +243,12 @@ def data_rows(path: str):
                 yield line
 
 
-def rows_compare(path: str, ref: str) -> dict:
-    """Data rows of two TSVs, byte for byte, in order."""
+def rows_compare(paths: list[str], ref: str) -> dict:
+    """Data rows of the files `paths`, read one after another, against
+    those of the TSV `ref`, byte for byte, in order."""
     n = n_ref = differ = 0
-    a, b = data_rows(path), data_rows(ref)
+    a = (row for p in paths for row in data_rows(p))
+    b = data_rows(ref)
     while True:
         x, y = next(a, None), next(b, None)
         if x is None and y is None:
@@ -226,6 +265,175 @@ def parity_ok(p: dict) -> bool:
     return P > 0 and min(p["parity_cnode_match"],
                          p["parity_loglik_match"]) >= PARITY_GATE * P \
         and p["parity_tsv_rows_equal"] in (None, p["parity_rows"])
+
+
+def launch_fails(tag: str, p: dict, chimera: bool) -> str | None:
+    """A process's kernel launches against its run's: every main-path
+    kernel (K1-K3) at least once, or under -C K1 at least once and the
+    placement kernels K2, K3 never (-C places on the host)."""
+    got = p["launches"]
+    ok = (got["viterbi_traced"] > 0 and got["est"] == 0
+          and got["sep_optimize"] == 0) if chimera \
+        else min(got.values()) > 0
+    return None if ok else f"{tag} process {p['process_id']} launches {got}"
+
+
+# ---------------------------------------------------------------------------
+# assign -C: planted chimeras, detection, the CPU's rows
+# ---------------------------------------------------------------------------
+
+def chimera_split(stages: dict, reads: int) -> dict:
+    """A -C process's stream seconds a read by stage, from its
+    StreamStages clocks: the alignment (align), the seed search over
+    every node (get_seed), the chimera check's segment placements
+    (segments) and the rest of it (alternatives: the two alternative
+    placements and the segments' seed p-distances), the whole read's
+    placement after it (host_sep) and the rest (rows)."""
+    seg = stages.get("chimera_segments_s", 0.0)
+    secs = {"align": stages.get("align_s", 0.0),
+            "get_seed": stages.get("get_seed_s", 0.0), "segments": seg,
+            "alternatives": stages.get("chimera_s", 0.0) - seg,
+            "host_sep": stages.get("host_sep_s", 0.0),
+            "rows": stages.get("rows_s", 0.0)}
+    return {k: v / reads for k, v in secs.items()}
+
+
+def simulate_chimera_reads(tree, rng, n: int, region, length=READ_LEN):
+    """n single-end reads of `length` bp from MSA columns [lo, hi) of
+    region, with 2% substitutions, as evolved_inputs.simulate_reads
+    makes them; every CHIMERA_EVERY-th read (r9, r19, ...) a chimera of
+    two distinct leaves, contiguous in columns: k residues of leaf a (k
+    uniform in CHIMERA_BREAK of the read) up to a's break column, then
+    residues of leaf b from the next column on.  The j-th chimera's b is
+    drawn among the leaves whose p-distance to a over a's window falls
+    in bin j % 3 (PDIST_BINS; the nearest leaf to that bin where none
+    does), so that close and distant parents both occur.  Returns [(id,
+    description, sequence)]; the description holds the truth:
+    `chimera=0 parents=<a>`, or `chimera=1 parents=<a>,<b> break=<col>
+    pdist=<p>` with the parents' p-distance over the read's columns."""
+    lo, hi = region
+    seqs, names = tree.seqs, tree.names
+    leaves = np.asarray([u for u in range(tree.num_nodes)
+                         if tree.is_leaf(u) and tree.msa_id[u] >= 0])
+    k_lo = int(np.ceil(CHIMERA_BREAK[0] * length))
+    k_hi = int(np.floor(CHIMERA_BREAK[1] * length))
+    reads, n_chim = [], 0
+    while len(reads) < n:
+        a = int(rng.choice(leaves))
+        pos = np.nonzero(seqs[a] >= 0)[0]
+        pos = pos[(pos >= lo) & (pos < hi)]
+        if len(pos) < length + 10:
+            continue
+        st = int(rng.integers(0, len(pos) - length - 5))
+        if (len(reads) + 1) % CHIMERA_EVERY:
+            piece = seqs[a][pos[st:st + length]].copy()
+            desc = f"chimera=0 parents={names[a]}"
+        else:
+            k = int(rng.integers(k_lo, k_hi + 1))
+            brk = int(pos[st + k - 1])
+            d = p_dists(seqs, leaves, a, pos[st], pos[st + length - 1])
+            near = (leaves != a) & np.isfinite(d)
+            bin_ = n_chim % len(BIN_NAMES)
+            pick = near & (np.digitize(d, PDIST_BINS) == bin_)
+            if pick.any():
+                b = int(rng.choice(leaves[pick]))
+            else:
+                centre = (0.0, sum(PDIST_BINS) / 2, 1.0)[bin_]
+                b = int(leaves[near][np.argmin(abs(d[near] - centre))])
+            pos_b = np.nonzero(seqs[b] >= 0)[0]
+            pos_b = pos_b[(pos_b > brk) & (pos_b < hi)][:length - k]
+            if len(pos_b) < length - k:
+                continue
+            piece = np.concatenate([seqs[a][pos[st:st + k]],
+                                    seqs[b][pos_b]])
+            pd = p_dists(seqs, np.asarray([b]), a, pos[st], pos_b[-1])[0]
+            desc = (f"chimera=1 parents={names[a]},{names[b]} break={brk} "
+                    f"pdist={pd:.6f}")
+            n_chim += 1
+        mut = rng.random(len(piece)) < 0.02
+        piece[mut] = rng.integers(0, 4, int(mut.sum()))
+        reads.append((f"r{len(reads)}", desc,
+                      "".join("ACGT"[c] for c in piece)))
+    return reads
+
+
+def p_dists(seqs, rows, a: int, c0: int, c1: int) -> np.ndarray:
+    """p-distance of leaf a to each of `rows` over columns [c0, c1],
+    where both have a residue (nan where they share none)."""
+    w = seqs[rows, c0:c1 + 1]
+    q = seqs[a, c0:c1 + 1][None, :]
+    both = (w >= 0) & (q >= 0)
+    n = both.sum(1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(n > 0, ((w != q) & both).sum(1) / n, np.nan)
+
+
+def write_reads(path: str, reads) -> str:
+    with open(path, "w") as fh:
+        fh.write("".join(f">{rid} {desc}\n{seq}\n"
+                         for rid, desc, seq in reads))
+    return path
+
+
+def chimera_rows(tsv: str, chi: str) -> dict:
+    """The rows of an assign -C run by read id: (flagged, row), flagged
+    when the row is in the --chimera-out file."""
+    return {row.split("\t", 1)[0]: (flagged, row)
+            for path, flagged in ((tsv, False), (chi, True))
+            for row in data_rows(path)}
+
+
+def detection(tsv: str, chi: str) -> dict:
+    """Planted chimeras flagged (their rows in the --chimera-out file) by
+    the parents' p-distance bin, all of them, and clean reads flagged;
+    each group's reads, flagged count and share, and the quantiles (0,
+    25, 50, 75, 100%) of its finite chimera lods (column 15).  The truth
+    is each read's description (simulate_chimera_reads); a clean read
+    has one parent, so it has no bin."""
+    groups = {g: [] for g in BIN_NAMES + ("planted", "clean")}
+    for flagged, row in chimera_rows(tsv, chi).values():
+        f = row.rstrip("\n").split("\t")
+        truth = dict(kv.split("=", 1) for kv in f[1].split())
+        entry = (flagged, float(f[14]))
+        if truth["chimera"] == "1":
+            groups["planted"].append(entry)
+            bin_ = int(np.digitize(float(truth["pdist"]), PDIST_BINS))
+            groups[BIN_NAMES[bin_]].append(entry)
+        else:
+            groups["clean"].append(entry)
+    out = {}
+    for g, entries in groups.items():
+        lods = np.asarray([x for _, x in entries if np.isfinite(x)])
+        k = sum(f for f, _ in entries)
+        out[g] = {"reads": len(entries), "flagged": k,
+                  "share": k / len(entries) if entries else None,
+                  "lod_quantiles": np.quantile(
+                      lods, [0, 0.25, 0.5, 0.75, 1]).tolist()
+                  if len(lods) else None,
+                  "lod_not_finite": len(entries) - len(lods)}
+    return out
+
+
+def cpu_rows_compare(cpu: dict, card: dict, n: int) -> dict:
+    """A CPU run's -C rows (chimera_rows) against the card's for the
+    same reads: each read flagged alike and its row byte-equal, except a
+    read whose alignment (columns 3-10) differs, as a D-chain tie may
+    make it (parity rule 2): those are named, and at most
+    CHIMERA_ALN_TIES may occur.  n: the reads the CPU run was given."""
+    missing = [i for i in cpu if i not in card]
+    aln, other = [], []
+    for i, (flagged, row) in cpu.items():
+        if i in missing or card[i] == (flagged, row):
+            continue
+        if row.split("\t")[2:10] != card[i][1].split("\t")[2:10]:
+            aln.append(i)
+        else:
+            other.append(i)
+    return {"reads": len(cpu), "rows_equal": len(cpu) - len(aln)
+            - len(other) - len(missing), "alignment_differs": aln,
+            "rows_differ": other, "missing_on_card": missing,
+            "ok": len(cpu) == n and not missing and not other
+            and len(aln) <= CHIMERA_ALN_TIES}
 
 
 # ---------------------------------------------------------------------------
@@ -256,14 +464,21 @@ def finish_all(children, grace: float) -> list[dict]:
 
 
 def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
-          base: dict | None, extra=()) -> dict:
-    """N assign children at once on `inputs`; the run's per-process and
-    per-N numbers and its gates (against base, the N = 1 run)."""
+          base: dict | None, reads: int, extra=(),
+          chimera: bool = False) -> dict:
+    """N assign children at once on `inputs` (`reads` reads or pairs);
+    the run's per-process and per-N numbers and its gates (against base,
+    the N = 1 run).  chimera: with CHIMERA_ARGV and --chimera-out, no
+    host parity, and the -C gates (no placer built, no placement kernel
+    launched, the .p<i> chimera files against base's)."""
     d = args.work
     tsv = os.path.join(d, f"{tag}.tsv")
     aln = os.path.join(d, f"{tag}.aln.fa")
+    chi = os.path.join(d, f"{tag}.chi.tsv")
     port = free_port()
     argv = [prefix, *inputs, "-o", tsv, "-a", aln, *extra]
+    if chimera:
+        argv += CHIMERA_ARGV + ["--chimera-out", chi]
     cuda = args.device != "cpu"
     children, errs, envs = [], [], []
     launched_at = time.time()
@@ -278,7 +493,7 @@ def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
                                   "--process-id", str(i), "--coordinator",
                                   f"127.0.0.1:{port}"],
                 args, tsv, parity=args.parity if base is None and i == 0
-                else 0, kernels=cuda, env=env, stderr=err))
+                and not chimera else 0, kernels=cuda, env=env, stderr=err))
     procs = []
     for i, (p, err) in enumerate(zip(finish_all(children, GRACE_S),
                                      errs)):
@@ -296,17 +511,25 @@ def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
         p["process_id"] = i
         p["cuda_visible_devices"] = (envs[i] or {}).get(
             "CUDA_VISIBLE_DEVICES")
+        if stream_s and p["processed"]:
+            p["s_per_read"] = stream_s / p["processed"][-1][1]
+            if chimera:
+                p["chimera_split_s_per_read"] = chimera_split(
+                    p["stream_stages_s"], p["processed"][-1][1])
         procs.append(p)
-    reads = args.pairs if tag.startswith("pe") else args.reads
     out = {"run": tag, "procs": procs, "fails": []}
     fails = out["fails"]
     for p in procs:
         if p["rc"] != 0 or p["exit"] != 0:
             fails.append(f"{tag} process {p['process_id']} rc {p['rc']} "
                          f"exit {p['exit']}")
-        if cuda and p["rc"] == 0 and min(p["launches"].values()) <= 0:
-            fails.append(f"{tag} process {p['process_id']} launches "
-                         f"{p['launches']}")
+        why = launch_fails(tag, p, chimera) if cuda and p["rc"] == 0 \
+            else None
+        if why:
+            fails.append(why)
+        if chimera and "upload_s" in p.get("clocks", {}):
+            fails.append(f"{tag} process {p['process_id']} built a "
+                         "DevicePlacer under -C")
     if fails:
         return out
     out.update(rates(n, reads, procs, launched_at, base))
@@ -325,13 +548,31 @@ def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
     if base is None:
         out["tsv"] = tsv
         out["rows"] = sum(1 for _ in data_rows(tsv))
-        if args.parity and not parity_ok(procs[0]):
+        if chimera:
+            out["chi_tsv"] = chi
+            out["chimera_rows"] = sum(1 for _ in data_rows(chi))
+            if out["rows"] + out["chimera_rows"] != reads:
+                fails.append(f"{tag} rows {out['rows']} + chimera rows "
+                             f"{out['chimera_rows']} != {reads} reads")
+        elif args.parity and not parity_ok(procs[0]):
             fails.append(f"{tag} parity")
     else:
-        out.update(rows_compare(tsv, base["tsv"]))
+        out.update(rows_compare([tsv], base["tsv"]))
         if not out["rows_equal"] or out["rows"] != out["rows_ref"]:
             fails.append(f"{tag} rows differ from one process: "
                          f"{out['rows_differ']} of {out['rows_ref']}")
+        if chimera:
+            # --chimera-out is not gathered: each process writes .p<i>
+            parts = [f"{chi}.p{i}" for i in range(n)]
+            have = all(map(os.path.exists, parts))
+            got = rows_compare(parts, base["chi_tsv"]) if have else {}
+            out["chimera_out"] = dict(got, files=[os.path.basename(f)
+                                                  for f in parts],
+                                      present=have)
+            if not have or os.path.exists(chi) or got["rows_differ"] \
+                    or got["rows"] != got["rows_ref"]:
+                fails.append(f"{tag} --chimera-out .p<i> files against "
+                             f"one process's: {out['chimera_out']}")
     return out
 
 
@@ -341,9 +582,34 @@ def brief(r: dict) -> dict:
     keep["procs"] = [{k: p.get(k) for k in (
         "rc", "exit", "wall_s", "cpu_s", "stream_cpu_s", "peak_rss_gb",
         "device_peak_gb", "cards_seen", "clocks", "stream_stages_s",
-        "launches", "kernel_ms", "aborted", "abort_after_rows")}
+        "s_per_read", "chimera_split_s_per_read", "launches",
+        "kernel_ms", "aborted",
+        "abort_after_rows")}
         for p in r["procs"]]
     return keep
+
+
+def chimera_cpu(args, prefix: str, reads, base: dict) -> dict:
+    """The first CHIMERA_PARITY -C reads through the port's assign
+    CLI on the CPU, in a process of its own, with the card runs' flags;
+    its rows against the card's N = 1 rows (cpu_rows_compare)."""
+    d = args.work
+    P = min(CHIMERA_PARITY, len(reads))
+    fa = write_reads(os.path.join(d, "chim_cpu.fasta"), reads[:P])
+    tsv, chi = (os.path.join(d, f"chim_cpu{x}.tsv") for x in ("", ".chi"))
+    got = finish_child(start_child(
+        "assign", [prefix, fa, "-o", tsv, *CHIMERA_ARGV, "--chimera-out",
+                   chi], args, parity=0, device="cpu"))
+    got.pop("stamps", None)
+    out = {"rc": got["rc"], "exit": got["exit"], "wall_s": got["wall_s"],
+           "clocks": got.get("clocks"),
+           "stream_stages_s": got.get("stream_stages_s")}
+    if got["rc"] == 0:
+        card = chimera_rows(base["tsv"], base["chi_tsv"])
+        out.update(cpu_rows_compare(chimera_rows(tsv, chi), card, P))
+    else:
+        out["ok"] = False
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -381,6 +647,12 @@ def main(argv=None) -> int:
     ap.add_argument("--parity", type=int, default=128,
                     help="reads of process 0 of each N = 1 run held "
                          "against the host path")
+    ap.add_argument("--chimera-reads", type=int, default=0,
+                    help="assign -C reads (every tenth a planted "
+                         f"chimera); 0: no -C runs, {CHIMERA_READS} "
+                         "asked for at size")
+    ap.add_argument("--chimera-processes", default="1,2",
+                    help="N of the -C runs, 1 first")
     ap.add_argument("--eval-engine", default="torch",
                     choices=["torch", "numpy"])
     ap.add_argument("--work", default=os.path.join(
@@ -393,32 +665,43 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda; cpu only when asked for")
     args = ap.parse_args(argv)
-    se_ns, pe_ns = parse_counts(args.processes), \
-        parse_counts(args.pair_processes)
-    if not se_ns:
-        ap.error("--processes names no N")
-    for ns in (se_ns, pe_ns):
+    se_ns = parse_counts(args.processes) if args.reads else []
+    pe_ns = parse_counts(args.pair_processes) if args.pairs else []
+    ch_ns = parse_counts(args.chimera_processes) \
+        if args.chimera_reads else []
+    if not se_ns + pe_ns + ch_ns:
+        ap.error("no run: --reads 0 and no --pair-processes or "
+                 "--chimera-reads")
+    for ns in (se_ns, pe_ns, ch_ns):
         if ns and (ns[0] != 1 or sorted(set(ns)) != ns):
             ap.error("process counts rise from 1: " + ",".join(map(str, ns)))
+    all_ns = se_ns + pe_ns + ch_ns
 
     from hmmufotu_tpu_torch._cuda import resolve_device
     dev = resolve_device(args.device)
     cards = card_count(dev)
-    if args.card_per_process and max(se_ns + pe_ns) > cards:
-        ap.error(f"--card-per-process needs {max(se_ns + pe_ns)} cards; "
+    if args.card_per_process and max(all_ns) > cards:
+        ap.error(f"--card-per-process needs {max(all_ns)} cards; "
                  f"{cards} seen")
     n_nodes = 2 * args.leaves - 1
     cuts = ([("nodes", f"{GG97_NODES:,} nodes", f"{n_nodes:,} nodes")]
             if n_nodes < GG97_NODES else [])
-    cuts += [("reads", CONFIG5_READS, f"{args.reads:,} reads"
-              + (f", {args.pairs:,} pairs" if pe_ns else "")),
+    runs = [f"{k:,} {what}" for k, what, ns in (
+        (args.reads, "reads", se_ns), (args.pairs, "pairs", pe_ns),
+        (args.chimera_reads, "-C reads", ch_ns)) if ns]
+    if ch_ns and args.chimera_reads < CHIMERA_READS:
+        runs[-1] += f" (of {CHIMERA_READS} asked)"
+    cuts += [("reads", CONFIG5_READS, ", ".join(runs)),
              ("hosts", "N hosts (BASELINE configs #4-#5)",
-              f"processes of one host, {max(se_ns + pe_ns)} at most")]
+              f"processes of one host, {max(all_ns)} at most")]
     why = [w for w in [args.why] if w] + [
         "every run loads the whole DB in each process and fits one chip "
         "call with the build", "the port's --num-processes joins "
         "processes over gloo at a coordinator address, the same on one "
         "host or several"]
+    if ch_ns:
+        why.append("-C places every read on the host in f64, so its reads "
+                   "are those that fit the call")
     res = {"device": str(dev), "card": card_line(dev), "cards": cards,
            "nproc": nproc(), "free_total_gb": free_total_gb(),
            "leaves": args.leaves, "n_nodes": n_nodes,
@@ -451,7 +734,12 @@ def main(argv=None) -> int:
     r0, Wr = site_window(L, REGION_COLS)
     se = write_fasta(os.path.join(d, "reads.fasta"), simulate_reads(
         tree, np.random.default_rng(READS_SEED), args.reads,
-        region=(r0, r0 + Wr)))
+        region=(r0, r0 + Wr))) if se_ns else ""
+    chim_reads = simulate_chimera_reads(
+        tree, np.random.default_rng(CHIMERA_SEED), args.chimera_reads,
+        (r0, r0 + Wr)) if ch_ns else []
+    chim = write_reads(os.path.join(d, "chim.fasta"), chim_reads) \
+        if ch_ns else ""
     pe = []
     if pe_ns:
         fwd, rev, _, _ = simulate_pairs(
@@ -482,7 +770,9 @@ def main(argv=None) -> int:
     # ---- 3-5. the runs ----------------------------------------------------
     shared = dev.type == "cuda" and not args.card_per_process
     free_gb = res["free_total_gb"]
-    for mode, ns, inputs in (("se", se_ns, [se]), ("pe", pe_ns, pe)):
+    for mode, ns, inputs, reads in (
+            ("se", se_ns, [se], args.reads), ("pe", pe_ns, pe, args.pairs),
+            ("chim", ch_ns, [chim], args.chimera_reads)):
         res[mode] = {}
         base = None
         for n in ns:
@@ -495,7 +785,8 @@ def main(argv=None) -> int:
                     res["skipped"].append(skip)
                     log("skipped " + json.dumps(skip))
                     continue
-            r = run_n(args, f"{mode}_n{n}", n, inputs, prefix, base)
+            r = run_n(args, f"{mode}_n{n}", n, inputs, prefix, base, reads,
+                      chimera=mode == "chim")
             res[mode][str(n)] = r
             res["fails"] += r["fails"]
             log(f"{mode} N={n}: " + json.dumps(brief(r)))
@@ -505,7 +796,7 @@ def main(argv=None) -> int:
                     break
                 base = r
         if mode == "se" and args.mesh and base is not None:
-            r = run_n(args, "se_mesh", 1, inputs, prefix, base,
+            r = run_n(args, "se_mesh", 1, inputs, prefix, base, reads,
                       extra=["--mesh"])
             seen = [p.get("cards_seen") for p in r["procs"]]
             if seen != [cards]:
@@ -514,11 +805,22 @@ def main(argv=None) -> int:
             res["fails"] += r["fails"]
             log("se --mesh: " + json.dumps(brief(r)))
             progress()
+        if mode == "chim" and base is not None:
+            res["chimera_detection"] = detection(base["tsv"],
+                                                 base["chi_tsv"])
+            log("-C detection: " + json.dumps(res["chimera_detection"]))
+            c = res["chimera_cpu"] = chimera_cpu(args, prefix, chim_reads,
+                                                 base)
+            log("-C on the CPU: " + json.dumps(c))
+            if not c["ok"]:
+                res["fails"].append(f"-C rows of the CPU run: {c}")
+            progress()
     # every abort seen, also of a run whose gates failed for it
     res["aborts"] = [
         {"run": r["run"], "process_id": p["process_id"], "exit": p["exit"],
          "after_rows": p["abort_after_rows"], "lines": p["abort_lines"]}
-        for r in [r for m in ("se", "pe") for r in res[m].values()]
+        for r in [r for m in ("se", "pe", "chim")
+                  for r in res[m].values()]
         + ([res["mesh"]] if "mesh" in res else [])
         for p in r["procs"] if p["aborted"] or p["abort_after_rows"]]
     progress()

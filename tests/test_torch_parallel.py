@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from conftest import REPO_ROOT, run_on_cpu_mesh
+from test_torch_cli_chimera import chimera_reads  # noqa: F401
 from test_torch_pipeline import (LL_ATOL, LL_RTOL, db_prefix,  # noqa: F401
                                  one_torch_thread, simulate_reads)
 
@@ -389,6 +390,35 @@ def test_two_processes_match_one(db_prefix, tmp_path, paired):  # noqa: F811
     assert body(multi) == body(one) and len(body(one)) == 16
     assert os.path.exists(aln + ".p0") and os.path.exists(aln + ".p1")
     assert not os.path.exists(aln)
+
+
+def test_two_processes_chimera_match_one(db_prefix, chimera_reads,  # noqa: F811
+                                         tmp_path):
+    """assign -C --chimera-out with --num-processes 2 over gloo: the
+    gathered data rows byte-equal to one process's; the --chimera-out
+    files are not gathered, each process writes its own .p<i>, and the
+    bodies of .p0 then .p1 are one process's chimera rows."""
+    from hmmufotu_tpu_torch.cli.assign import main
+    flags = ["-C", "-s", "1"]
+    one, one_chi = str(tmp_path / "one.tsv"), str(tmp_path / "one_chi.tsv")
+    assert main([db_prefix, chimera_reads, "-o", one, "--chimera-out",
+                 one_chi, *flags], device="cpu") == 0
+    multi, chi = str(tmp_path / "multi.tsv"), str(tmp_path / "chi.tsv")
+    port = free_port()
+    codes = [f"""
+        import sys
+        from hmmufotu_tpu_torch.cli.assign import main
+        sys.exit(main({[db_prefix, chimera_reads, *flags]!r} + [
+            "-o", {multi!r}, "--chimera-out", {chi!r},
+            "--coordinator", "localhost:{port}", "--num-processes", "2",
+            "--process-id", "{pid}"], device="cpu"))
+        """ for pid in (0, 1)]
+    for r in run_procs(codes):
+        assert r.returncode == 0, r.stderr[-3000:]
+    assert body(multi) == body(one) and len(body(one)) > 0
+    assert not os.path.exists(chi)
+    parts = body(chi + ".p0") + body(chi + ".p1")
+    assert parts == body(one_chi) and len(parts) > 0
 
 
 def test_multihost_otu_psum_sums_processes():

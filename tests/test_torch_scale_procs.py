@@ -96,6 +96,8 @@ def test_harness_runs(harness, mode, reads):
             inner = {"gen_s", "place_dispatch_s", "place_collect_s"} \
                 if mode == "se" else {"align_s", "place_s"}
             assert inner | {"seed_s", "strings_s", "rows_s"} <= set(stages)
+            # -C's host clocks only in -C children (CHIMERA_STAGES)
+            assert not {"get_seed_s", "chimera_s", "host_sep_s"} & set(stages)
             assert p["viterbi_timing_s"]["host_build"] > 0
         names = ([f"{mode}_n1.aln.fa"] if n == 1 else
                  [f"{mode}_n2.aln.fa.p0", f"{mode}_n2.aln.fa.p1"])
@@ -202,9 +204,9 @@ def test_rows_compare(scripts_path, tmp_path):
     a.write_text(head + "r0\t1\nr1\t2\n")
     b.write_text("# command: y\nid\tdescription\nr0\t1\nr1\t2\n")
     c.write_text(head + "r0\t1\nr1\t3\nr2\t4\n")
-    assert rows_compare(str(a), str(b)) == {
+    assert rows_compare([str(a)], str(b)) == {
         "rows": 2, "rows_ref": 2, "rows_differ": 0, "rows_equal": True}
-    got = rows_compare(str(c), str(a))
+    got = rows_compare([str(c)], str(a))
     assert got == {"rows": 3, "rows_ref": 2, "rows_differ": 2,
                    "rows_equal": False}
 
@@ -224,3 +226,218 @@ def test_failed_child_stops_the_run(scripts_path):
     assert time.perf_counter() - t < 60
     assert [g["exit"] for g in got] == [3, -9]
     assert [g["rc"] for g in got] == [None, None]
+
+
+# ---------------------------------------------------------------------------
+# assign -C runs
+# ---------------------------------------------------------------------------
+
+CHIMERA_SHAPE = ["--leaves", "64", "--length", "600", "--reads", "0",
+                 "--pair-processes", "", "--chimera-reads", "40",
+                 "--chimera-processes", "1,2",
+                 "--eval-engine", "numpy", "--device", "cpu"]
+CHIMERA_STAGES = {"align_s", "get_seed_s", "chimera_s",
+                  "chimera_segments_s", "host_sep_s", "rows_s"}
+
+
+@pytest.fixture(scope="module")
+def chimera_harness(tmp_path_factory):
+    """One CPU run of the harness's -C runs alone at the tiny shape: its
+    JSON line and work directory."""
+    work = tmp_path_factory.mktemp("chim")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, os.path.join(SCRIPTS, "torch_scale_procs.py")]
+        + CHIMERA_SHAPE + ["--work", str(work)],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1]), work
+
+
+def test_chimera_harness_runs(chimera_harness):
+    """-C at N = 1 and 2 alone (--reads 0): no placer built, the gathered
+    rows and the .p<i> chimera files against one process's, each
+    process's stage clocks and seconds a read by stage, and the CPU
+    run's rows against the N = 1 run's."""
+    got, work = chimera_harness
+    assert got["fails"] == [] and got["aborts"] == []
+    assert got["se"] == {} and got["pe"] == {}
+    assert got["reduced"]["to"] == ("127 nodes; 40 -C reads (of 256 "
+                                    "asked); processes of one host, 2 at "
+                                    "most")
+    one, two = got["chim"]["1"], got["chim"]["2"]
+    assert one["reads"] == two["reads"] == 40
+    assert one["rows"] + one["chimera_rows"] == 40
+    assert one["chimera_rows"] > 0
+    assert two["rows_equal"] and two["rows"] == one["rows"]
+    assert two["chimera_out"]["files"] == ["chim_n2.chi.tsv.p0",
+                                           "chim_n2.chi.tsv.p1"]
+    assert two["chimera_out"]["rows_differ"] == 0
+    assert two["chimera_out"]["rows"] == one["chimera_rows"]
+    for r in (one, two):
+        for p in r["procs"]:
+            assert "upload_s" not in p["clocks"]
+            assert "parity_reads" not in p
+            assert CHIMERA_STAGES <= set(p["stream_stages_s"])
+            split = p["chimera_split_s_per_read"]
+            assert sum(split.values()) * p["processed"][-1][1] \
+                == pytest.approx(p["clocks"]["stream_s"], rel=1e-6)
+            assert min(split.values()) >= 0
+    cpu = got["chimera_cpu"]
+    assert cpu["ok"] and cpu["reads"] == 32 and cpu["rows_equal"] == 32
+    assert "upload_s" not in cpu["clocks"]
+    det = got["chimera_detection"]
+    assert det["planted"]["reads"] == 4 and det["clean"]["reads"] == 36
+    assert sum(det[b]["reads"] for b in ("pdist<3%", "pdist3-10%",
+                                         "pdist>=10%")) == 4
+
+
+def test_chimera_rows_match_reference_cli(scripts_path, chimera_harness,
+                                          tmp_path):
+    """The N = 2 gathered -C rows and chimera files against the
+    reference package's assign CLI as one process on the same DB files
+    and flags: host f64 placement in both, the same bytes."""
+    from hmmufotu_tpu.cli.assign import main as ref_assign
+    from torch_scale_procs import rows_compare
+    _, work = chimera_harness
+    out, chi = str(tmp_path / "ref.tsv"), str(tmp_path / "ref.chi.tsv")
+    assert ref_assign([str(work / "db"), str(work / "chim.fasta"), "-o",
+                       out, "-C", "-s", "1", "-b", "64", "--chimera-out",
+                       chi]) == 0
+    assert rows_compare([str(work / "chim_n2.tsv")], out)["rows_equal"]
+    assert rows_compare([str(work / "chim_n2.chi.tsv.p0"),
+                         str(work / "chim_n2.chi.tsv.p1")],
+                        chi)["rows_equal"]
+
+
+def chimera_tree(tmp_path):
+    from evolved_inputs import input_tree, synth_inputs
+    synth_inputs(str(tmp_path), 64, 600)
+    return input_tree(str(tmp_path))
+
+
+def test_chimera_read_maker(scripts_path, tmp_path):
+    """Deterministic from its seed; every tenth read a chimera of two
+    distinct leaves whose 5' part (30-70% of the read) ends at the break
+    column of leaf a and whose 3' part starts at b's next residue
+    column; the recorded p-distance is the parents' over the read's
+    columns."""
+    import numpy as np
+    from torch_scale_procs import p_dists, simulate_chimera_reads
+    tree = chimera_tree(tmp_path)
+    L = tree.cs_len
+    reads = simulate_chimera_reads(tree, np.random.default_rng(3), 60,
+                                   (0, L))
+    again = simulate_chimera_reads(tree, np.random.default_rng(3), 60,
+                                   (0, L))
+    assert reads == again
+    assert [rid for rid, _, _ in reads] == [f"r{i}" for i in range(60)]
+    planted = [i for i, (_, desc, _) in enumerate(reads)
+               if desc.startswith("chimera=1 ")]
+    assert planted == list(range(9, 60, 10))
+    node = {name: u for u, name in enumerate(tree.names)}
+    for i, (_, desc, seq) in enumerate(reads):
+        assert len(seq) == 250
+        truth = dict(kv.split("=", 1) for kv in desc.split())
+        if i not in planted:
+            assert truth == {"chimera": "0", "parents": truth["parents"]}
+            continue
+        a, b = (node[x] for x in truth["parents"].split(","))
+        brk = int(truth["break"])
+        assert a != b
+        pos_a = np.nonzero(tree.seqs[a] >= 0)[0]
+        pos_b = np.nonzero(tree.seqs[b] >= 0)[0]
+        pos_a, pos_b = pos_a[pos_a <= brk], pos_b[pos_b > brk]
+        assert pos_a[-1] == brk
+        codes = np.asarray(["ACGT".index(c) for c in seq])
+        # the 5' length k whose parts fit the read best: 2% substitutions
+        fit = {k: int((np.concatenate([tree.seqs[a][pos_a[-k:]],
+                                       tree.seqs[b][pos_b[:250 - k]]])
+                       != codes).sum())
+               for k in range(1, 250) if k <= len(pos_a)
+               and 250 - k <= len(pos_b)}
+        k = min(fit, key=fit.get)
+        assert fit[k] <= 20 and 75 <= k <= 175
+        pd = p_dists(tree.seqs, np.asarray([b]), a, pos_a[-k],
+                     pos_b[250 - k - 1])[0]
+        assert float(truth["pdist"]) == pytest.approx(pd, abs=1e-6)
+
+
+def test_chimera_detection_counts(scripts_path, tmp_path):
+    """Planted reads flagged by bin, clean reads flagged, lod quantiles,
+    on hand-made TSVs (the lod in column 15)."""
+    from torch_scale_procs import detection
+
+    def row(rid, desc, lod):
+        return "\t".join([rid, desc] + ["0"] * 12 + [lod, "x"]) + "\n"
+
+    head = "# x\nid\tdescription\n"
+    main, chi = tmp_path / "a.tsv", tmp_path / "a.chi.tsv"
+    main.write_text(head + row("r0", "chimera=0 parents=S1", "0")
+                    + row("r1", "chimera=1 parents=S1,S2 break=9 "
+                          "pdist=0.050000", "-2.5")
+                    + row("r2", "chimera=0 parents=S3", "nan"))
+    chi.write_text(head + row("r3", "chimera=1 parents=S4,S5 break=7 "
+                              "pdist=0.010000", "12")
+                   + row("r4", "chimera=1 parents=S4,S6 break=8 "
+                         "pdist=0.300000", "40")
+                   + row("r5", "chimera=1 parents=S4,S7 break=8 "
+                         "pdist=0.100000", "20")
+                   + row("r6", "chimera=0 parents=S8", "3"))
+    got = detection(str(main), str(chi))
+    assert got["pdist<3%"] == {"reads": 1, "flagged": 1, "share": 1.0,
+                               "lod_quantiles": [12.0] * 5,
+                               "lod_not_finite": 0}
+    assert got["pdist3-10%"]["flagged"] == 0
+    assert got["pdist3-10%"]["lod_quantiles"] == [-2.5] * 5
+    assert got["pdist>=10%"]["reads"] == 2
+    assert got["pdist>=10%"]["lod_quantiles"] == [20.0, 25.0, 30.0, 35.0,
+                                                  40.0]
+    assert got["planted"]["reads"] == 4 and got["planted"]["flagged"] == 3
+    assert got["clean"] == {"reads": 3, "flagged": 1, "share": 1 / 3,
+                            "lod_quantiles": [0.0, 0.75, 1.5, 2.25, 3.0],
+                            "lod_not_finite": 1}
+
+
+@pytest.mark.parametrize("launches, chimera, ok", [
+    ({"viterbi_traced": 4, "est": 0, "sep_optimize": 0}, True, True),
+    ({"viterbi_traced": 4, "est": 2, "sep_optimize": 0}, True, False),
+    ({"viterbi_traced": 4, "est": 0, "sep_optimize": 1}, True, False),
+    ({"viterbi_traced": 0, "est": 0, "sep_optimize": 0}, True, False),
+    ({"viterbi_traced": 4, "est": 2, "sep_optimize": 2}, False, True),
+    ({"viterbi_traced": 4, "est": 0, "sep_optimize": 0}, False, False)],
+    ids=["C-K1-only", "C-K2", "C-K3", "C-no-K1", "stream", "stream-no-K2"])
+def test_launch_gate(scripts_path, launches, chimera, ok):
+    """-C: K1 at least once, K2 and K3 never; otherwise every kernel."""
+    from torch_scale_procs import launch_fails
+    got = launch_fails("t", {"process_id": 0, "launches": launches},
+                       chimera)
+    assert (got is None) == ok
+
+
+def test_cpu_rows_compare(scripts_path):
+    """One read whose alignment differs passes and is named; a second,
+    or a row that differs with the same alignment, or a read missing on
+    the card, fails."""
+    from torch_scale_procs import cpu_rows_compare
+
+    def row(rid, aln="AC", lod="1"):
+        return "\t".join([rid, "d"] + ["1"] * 7 + [aln, lod]) + "\n"
+
+    card = {f"r{i}": (i == 2, row(f"r{i}")) for i in range(4)}
+    same = dict(card)
+    got = cpu_rows_compare(same, card, 4)
+    assert got["ok"] and got["rows_equal"] == 4
+    tie = dict(card, r1=(False, row("r1", aln="A-C")))
+    got = cpu_rows_compare(tie, card, 4)
+    assert got["ok"] and got["alignment_differs"] == ["r1"]
+    two = dict(tie, r3=(False, row("r3", aln="A-C")))
+    assert not cpu_rows_compare(two, card, 4)["ok"]
+    lod = dict(card, r0=(False, row("r0", lod="2")))
+    got = cpu_rows_compare(lod, card, 4)
+    assert not got["ok"] and got["rows_differ"] == ["r0"]
+    flag = dict(card, r2=(False, row("r2")))
+    assert not cpu_rows_compare(flag, card, 4)["ok"]
+    assert not cpu_rows_compare(dict(card, r9=(False, row("r9"))),
+                                card, 5)["ok"]
+    assert not cpu_rows_compare(same, card, 5)["ok"]
