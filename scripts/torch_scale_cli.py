@@ -82,8 +82,8 @@ sys.path.insert(0, SCRIPTS)
 from evolved_inputs import (FASTA, TAXONOMY, TREE, input_tree,  # noqa
                             simulate_reads, synth_inputs, write_fasta)
 from torch_scale_assign import site_window  # noqa: E402
-from torch_scale_e2e import (clip_to_device_window, host_agreement,  # noqa
-                             leaves_window)
+from torch_scale_e2e import (ShardClock, clip_to_device_window,  # noqa
+                             host_agreement, leaves_window)
 from torch_scale_eval import card_line, device_peak_gb, peak_rss_gb  # noqa
 
 GG97_LEAVES = 75000
@@ -255,25 +255,33 @@ def clock_iter(owner, name, clocks, key):
 
 def kernel_events():
     """Count and time every launch of the main path's kernels (K1-K3)
-    with CUDA events on the launching stream, from 0.  Returns finish():
-    after the run, each kernel's launches and summed milliseconds."""
+    with CUDA events on the launching stream (the current stream of the
+    card its tensors lie on), from 0.  Returns finish(): after the run,
+    each kernel's launches and summed milliseconds, and its launches by
+    card."""
     import torch
     from hmmufotu_tpu_torch.hmm import cuda_viterbi as cv
     from hmmufotu_tpu_torch.phylo import cuda_place as cp
-    events = {}
+    events, by_card = {}, {}
 
     def timed(key, mod, attr):
         fn = getattr(mod, attr)
         fn.launches.reset()
         events[key] = []
+        by_card[key] = {}
 
         def wrapper(*args, **kw):
+            card = next((a.device for a in args
+                         if torch.is_tensor(a) and a.is_cuda), None)
+            stream = torch.cuda.current_stream(card)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
-            s.record()
+            s.record(stream)
             out = fn(*args, **kw)
-            e.record()
+            e.record(stream)
             events[key].append((s, e))
+            c = str(stream.device.index)
+            by_card[key][c] = by_card[key].get(c, 0) + 1
             return out
         # the launcher counts through its module-level name
         wrapper.launches = fn.launches
@@ -289,9 +297,62 @@ def kernel_events():
         torch.cuda.synchronize()
         return {"launches": {k: c.n for k, c in counts.items()},
                 "kernel_ms": {k: sum(s.elapsed_time(e) for s, e in ev)
-                              for k, ev in events.items()}}
+                              for k, ev in events.items()},
+                "launches_by_card": by_card}
 
     return finish
+
+
+class MeshClocks:
+    """A mesh run's placement (assign --mesh or --mesh-tree) by shard:
+    each card's busy ms from CUDA events around every place_batch_device
+    on it and the host seconds each call took to enqueue (ShardClock);
+    under --mesh-tree also tree_shards' seconds (clocks tree_shards_s,
+    the cards synchronized after the first call, which builds the
+    shards; later calls find them built), each shard's device, first
+    node and message bytes, and the host merge of the shards' grids
+    (clocks merge_s, pipeline.merge_mp_candidates)."""
+
+    def __init__(self, pl, clocks, cuda: bool):
+        import torch
+        from hmmufotu_tpu_torch.parallel import sharding
+        self.cuda, self.shards = cuda, []
+        build = sharding.tree_shards
+
+        def shards(mesh, placer):
+            t = time.perf_counter()
+            out = build(mesh, placer)
+            if not self.shards:
+                if cuda:
+                    for d in set(mesh.devices):
+                        torch.cuda.synchronize(d)
+                self.shards = [
+                    {"device": str(dt.msg_up.device), "node_lo": lo,
+                     "msg_bytes": dt.msg_up.nbytes + dt.msg_down.nbytes}
+                    for lo, dt, _ in out]
+            clocks["tree_shards_s"] = (clocks.get("tree_shards_s", 0.0)
+                                       + time.perf_counter() - t)
+            return out
+
+        sharding.tree_shards = shards
+        clock(pl, "merge_mp_candidates", clocks, "merge_s")
+        self.clock = ShardClock(cuda).__enter__()
+
+    def result(self) -> dict:
+        out = {"card_busy_ms": self.clock.busy_ms() if self.cuda else {},
+               "shard_enqueue_s": self.clock.enqueue_s}
+        if self.shards:
+            out["shards"] = self.shards
+        return out
+
+
+def cpu_mesh(n: int):
+    """The assign CLI's mesh as n CPU shards (its make_mesh patched, as
+    tests/test_torch_cuda.py does): a CPU run of a mesh flag with as many
+    shards as the cards of the run it checks."""
+    from hmmufotu_tpu_torch import parallel
+    parallel.make_mesh = lambda *a, **kw: parallel.sharding.make_mesh(
+        n, device="cpu")
 
 
 def load_clocks(files: dict, members: dict, read: list):
@@ -339,7 +400,7 @@ def child(spec: dict) -> int:
     stamps = LogStamps()
     logging.getLogger().addHandler(stamps)
     clocks, held = {}, {}
-    kernels = None
+    kernels = mesh = None
     files, members, read = {}, {}, []
     if spec["cli"] != "build":
         load_clocks(files, members, read)
@@ -426,8 +487,19 @@ def child(spec: dict) -> int:
                               chimera="-C" in spec["argv"])
         if spec.get("kernels") and dev.type == "cuda":
             kernels = kernel_events()
+        if spec.get("cpu_shards"):
+            cpu_mesh(spec["cpu_shards"])
+        if {"--mesh", "--mesh-tree"} & set(spec["argv"]):
+            mesh = MeshClocks(pl, clocks, sync is not None)
+    # a mesh run's peaks on every card it sees
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())] \
+        if sync and mesh else [dev]
     if sync and spec["cli"] in ("build", "assign"):
-        torch.cuda.reset_peak_memory_stats(dev)
+        for c in cards:
+            # a card's allocator exists once something is allocated there
+            torch.empty(1, device=c)
+            torch.cuda.reset_peak_memory_stats(c)
     started_at = time.time()
     rc = (main(spec["argv"]) if spec["cli"] in ("sum", "merge")
           else main(spec["argv"], device=spec["device"]))
@@ -442,6 +514,10 @@ def child(spec: dict) -> int:
     if spec["cli"] == "assign":
         out.update(stream_stages_s=stages.s, stream_cpu_s=stages.cpu_s,
                    viterbi_timing_s=stages.timing)
+    if mesh:
+        out.update(mesh.result())
+        if sync:
+            out["device_peaks_gb"] = [device_peak_gb(c) for c in cards]
     if spec["cli"] != "build":
         out.update(load_files_s=files, load_ptu_members_s=members,
                    ptu_members_read=read)
@@ -467,20 +543,22 @@ def cpu_seconds() -> float:
 
 class StreamStages:
     """Host clocks inside the assign CLI's stream (stream_single, or
-    batch_loop for pairs and --mesh), from wrappers of the functions it
-    calls; the package is not edited.  Each function's seconds are
-    summed on the thread that runs it: in stream_single the seed search
-    (seed_s) and the DP launch (dp_dispatch_s) run on assign_stream's
-    worker thread; the download and alignment strings (strings_s,
-    ViterbiAligner.finalize_batch), the placement's launch and download
-    (place_dispatch_s, place_collect_s), and the time inside the
-    generator (gen_s, its waits for the worker included) on the main
-    thread, whose rest of the stream is the TSV rows (rows_s).  In
+    batch_loop for pairs, --mesh and --mesh-tree), from wrappers of the
+    functions it calls; the package is not edited.  Each function's
+    seconds are summed on the thread that runs it: in stream_single the
+    seed search (seed_s) and the DP launch (dp_dispatch_s) run on
+    assign_stream's worker thread; the download and alignment strings
+    (strings_s, ViterbiAligner.finalize_batch), the placement's launch
+    and download (place_dispatch_s, place_collect_s), and the time
+    inside the generator (gen_s, its waits for the worker included) on
+    the main thread, whose rest of the stream is the TSV rows
+    (rows_s).  In
     batch_loop: the alignments (align_s, seed_s in it), the placement
-    (place_s) and the rest (rows_s: orientation, merge, TSV rows); with
-    chimera (an assign -C run) the placement is on the host, and its
-    clocks are those of the seed search over every node
-    (get_seed_s), the chimera check (chimera_s; in it the segments'
+    (place_s; under --mesh-tree the shards' placements, their grids'
+    download and the host merge) and the rest (rows_s: orientation,
+    merge, TSV rows); with chimera (an assign -C run) the placement is
+    on the host, and its clocks are those of the seed search over every
+    node (get_seed_s), the chimera check (chimera_s; in it the segments'
     estimate, filter and place, chimera_segments_s, and besides them the
     two alternatives and the segments' seed p-distances) and the whole
     read's estimate, filter and place after it (host_sep_s).
@@ -506,6 +584,7 @@ class StreamStages:
                 (pl, "collect_place_batch", "place_collect_s"),
                 (pl, "align_reads", "align_s"),
                 (pl, "assign_batch_device", "place_s"),
+                (pl, "assign_batch_device_tree", "place_s"),
                 (SeqWriter, "write", "align_out_s")):
             self.wrap(owner, name, key)
         if chimera:
@@ -609,15 +688,16 @@ def parity(pl, tree, seen, tsv) -> dict:
 def start_child(cli: str, argv: list[str], args, tsv: str = "",
                 parity: int | None = None, kernels: bool = False,
                 env: dict | None = None, stderr=None,
-                device: str | None = None):
+                device: str | None = None, cpu_shards: int = 0):
     """Start a CLI run in a process of its own (see run_child); env
     entries are added to this process's environment, stderr is a file
     for its standard error (default: this process's), device overrides
-    args.device.  Returns what finish_child takes."""
+    args.device, cpu_shards > 0 makes the CLI's mesh that many CPU
+    shards (cpu_mesh).  Returns what finish_child takes."""
     spec = {"cli": cli, "argv": argv,
             "device": args.device if device is None else device,
             "parity": args.parity if parity is None else parity,
-            "tsv": tsv, "kernels": kernels}
+            "tsv": tsv, "kernels": kernels, "cpu_shards": cpu_shards}
     log(f"{cli} {' '.join(argv)}"
         + (f" ({' '.join(f'{k}={v}' for k, v in env.items())})"
            if env else ""))

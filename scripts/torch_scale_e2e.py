@@ -153,8 +153,10 @@ def agreement(best, host, spans, W, log_as) -> dict:
     of host_placements) on the rows both placed: the counts of the
     module docstring's three rules, the same taxon (a node), and the
     largest loglik gap; spans[r] is row r's aligned width in columns, of
-    which the device scores at most W."""
+    which the device scores at most W.  cnode_near_tie_rows: the rows
+    whose c node differs within 8 ulps (counted in cnode_match)."""
     n_exact = n_match = n_ll = n_both = n_trunc = n_trunc_mism = 0
+    near = []
     n_trunc_ll = n_taxon = 0
     max_dll = 0.0
     for r, h in host.items():
@@ -183,6 +185,7 @@ def agreement(best, host, spans, W, log_as) -> dict:
             # between the device's and the host's summation orders
             if h.loglik - best[r].loglik <= 8 * ulp:
                 n_match += 1
+                near.append(int(r))
             else:
                 n_trunc_mism += int(trunc)
                 log(f"{log_as} mismatch r{r}: dev {best[r].c_node} "
@@ -190,7 +193,8 @@ def agreement(best, host, spans, W, log_as) -> dict:
                     f"(ll {h.loglik:.1f}) span {span}"
                     + (" TRUNCATED" if trunc else ""))
     return {"reads": int(n_both), "cnode_exact": int(n_exact),
-            "cnode_match": int(n_match), "loglik_match": int(n_ll),
+            "cnode_match": int(n_match), "cnode_near_tie_rows": near,
+            "loglik_match": int(n_ll),
             "taxon_match": int(n_taxon),
             "max_abs_dloglik": float(max_dll),
             "span_gt_W": int(n_trunc), "mism_span_gt_W": int(n_trunc_mism),

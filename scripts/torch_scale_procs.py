@@ -1,7 +1,8 @@
 """`assign --num-processes N` at size through the PyTorch port's CLIs:
 N processes a run, on one card or one card each, against one process;
 single-end reads, pairs, and single-end reads with chimera checking
-(`assign -C`).
+(`assign -C`); and one process over every card with `assign --mesh` and
+`--mesh-tree`.
 
 Each process of `assign --coordinator H:P --num-processes N --process-id
 I` loads the whole DB, takes a contiguous shard of the reads, keeps its
@@ -22,7 +23,12 @@ holds the gathered rows against one process's.  Steps:
              truth in each description); on a card the kernels are
              built here, before any CLI starts;
   2. build   the build CLI (-s GTR --msg-dtype f32 --eval-engine torch);
-  3. runs    single-end reads at each N of --processes, then the pairs at
+  3. CPU     the CPU references, both at once, done before any card
+             run: the first CHIMERA_PARITY -C reads (chimera_cpu), and
+             with --mesh-tree the first MESH_TREE_CPU single-end reads
+             through `assign --mesh-tree` on as many CPU shards as there
+             are cards (the CLI's make_mesh patched);
+  4. runs    single-end reads at each N of --processes, then the pairs at
              each N of --pair-processes, then the -C reads at each N of
              --chimera-processes (CHIMERA_ARGV and --chimera-out; .p<i>
              at N > 1), N = 1 first: N assign children
@@ -30,15 +36,21 @@ holds the gathered rows against one process's.  Steps:
              --process-id i --coordinator 127.0.0.1:<free port>)` with -a
              (its --align-out file gets the suffix .p<i> at N > 1); with
              --card-per-process child i sees card i alone
-             (CUDA_VISIBLE_DEVICES=i), else they share the card.  With
-             --mesh, one more single-end run: one process over every
-             card (`assign --mesh`).  A child that exits non-zero while
-             others run stops the run after GRACE_S seconds;
-  4. gates   every child exits 0; process 0's gathered TSV has data rows
-             byte-equal to the N = 1 run's (the --mesh run's too); the
-             --align-out files present; process 0 of each N = 1 run
-             holds its first --parity placements against the exact host
-             path (torch_scale_cli's parity; at N > 1 the rows are held
+             (CUDA_VISIBLE_DEVICES=i) and a -C child card 0, else they
+             share the card.  With --mesh, one more single-end run: one
+             process over every card (`assign --mesh`, a replica a
+             card).  With --mesh-tree, one more single-end run on the
+             first --mesh-tree-reads reads and one more paired run on the
+             first MESH_TREE_PAIRS pairs: one process over every card,
+             `assign --mesh-tree` (the tree's messages in node blocks, a
+             block a card).  On the CPU a mesh is CPU_SHARDS CPU shards
+             (run_mesh).  A child that exits non-zero while others run
+             stops the run after GRACE_S seconds;
+  5. gates   every child exits 0; process 0's gathered TSV has data rows
+             byte-equal to the N = 1 run's; the --align-out files
+             present; process 0 of each N = 1 run holds its first
+             --parity placements against the exact host path
+             (torch_scale_cli's parity; at N > 1 the rows are held
              byte-equal to those, and parity is 0).  -C runs instead:
              no DevicePlacer built (no upload_s), K1 launched and K2, K3
              never in every process, main plus chimera rows one a read,
@@ -46,10 +58,17 @@ holds the gathered rows against one process's.  Steps:
              = 1 file's, and the first CHIMERA_PARITY reads run again
              through the CLI on the CPU (chimera_cpu) with rows
              byte-equal to the card's, but at most CHIMERA_ALN_TIES
-             reads whose alignment differs (a D-chain tie), named.  Any
-             failure: rc 1.  Nothing falls back to the CPU or to one
-             process;
-  5. guards  an N is skipped, with its numbers in `skipped`, when N x
+             reads whose alignment differs (a D-chain tie), named.
+             The mesh runs (run_mesh): the process sees every card,
+             with a device peak and K2, K3 launched on each, and writes
+             a row a single-end read; --mesh: rows byte-equal to the N =
+             1 run's; --mesh-tree: each shard's message bytes recorded,
+             and its first reads' rows agree with the CPU shards' by the
+             rules of tests/test_torch_parallel.py (rows_differ; each
+             read that differs named, with both rows' placement
+             columns).  Any failure: rc 1.  Nothing falls back to the
+             CPU or to one process;
+  6. guards  an N is skipped, with its numbers in `skipped`, when N x
              (the N = 1 run's peak RSS) + 5 GB exceeds `free -g`'s total
              or, with the card shared, N x (its device peak + 1 GB)
              exceeds 76 GB.
@@ -72,6 +91,14 @@ from the launch to the last process's return from the CLI; process 0's
 parity after it is not counted), each one's efficiency rate(N) / (N x
 rate(1)), rows_equal and the --align-out files.  Every assign child
 runs with -a, HMMUFOTU_TIMING=1 and torch_scale_cli's stage wrappers.
+A mesh run also reports load, upload, tree_shards and merge seconds,
+each card's busy ms (CUDA events around each shard's
+place_batch_device) against the placement's host seconds, K1-K3
+launches a card and device peaks a card; a --mesh-tree run its rows
+against the one-card N = 1 run's (one_card_share: the share on the same
+branch, the loglik deficit of the others; the reference's tree-sharded
+merge can pick another branch).  `processes_scanned` counts the processes whose
+standard error the abort scan read.
 After the -C runs: the detection of the planted chimeras by the parents'
 p-distance (`chimera_detection`) and the CPU run (`chimera_cpu`).  One
 JSON line, the last the script prints, with every number, the card line, nproc,
@@ -83,10 +110,15 @@ nodes do not fit it):
     python scripts/torch_scale_procs.py --leaves 32768 --length 6000 \\
         --reads 400000 --pairs 50000 --processes 1,2,3 \\
         --progress out/procs.json
-Four H100s, the gg_97 shape, one process a card, and --mesh:
+Four H100s, the gg_97 shape, one process a card, --mesh and --mesh-tree:
     python scripts/torch_scale_procs.py --leaves 75000 --length 6000 \\
-        --reads 100000 --pairs 20000 --processes 1,2,4 \\
-        --card-per-process --mesh --progress out/procs4.json
+        --reads 400000 --pairs 50000 --processes 1,2,4 \\
+        --pair-processes 1,2,4 --card-per-process --mesh --mesh-tree \\
+        --progress out/procs4.json
+    (--mesh-tree alone: --reads 20000 --pairs 10000 --processes ''
+    --pair-processes '' --mesh-tree;
+    -C on the host's cores, every process on card 0: --reads 0
+    --pair-processes '' --chimera-reads 1024 --chimera-processes 1,4,8)
 One H100, the gg_97 shape, assign -C in one process and in two sharing
 the card (--reads 0: no single-end runs):
     python scripts/torch_scale_procs.py --leaves 75000 --length 6000 \\
@@ -96,7 +128,9 @@ CPU smoke:
     python scripts/torch_scale_procs.py --leaves 64 --length 600 \\
         --reads 256 --pairs 64 --processes 1,2 --eval-engine numpy \\
         --device cpu --work /tmp/procs
-    (-C: --reads 0 --pair-processes '' --chimera-reads 40)
+    (-C: --reads 0 --pair-processes '' --chimera-reads 40; the mesh runs:
+    --reads 32 --pairs 8 --processes 1 --pair-processes 1 --mesh
+    --mesh-tree)
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -140,7 +174,7 @@ GRACE_S = 120.0                   # a failed child's siblings' time to end
 # assign -C runs: every CHIMERA_EVERY-th read a planted chimera whose
 # 5' part is CHIMERA_BREAK of the read; -s 1 skips the strand test (a
 # shard's strand cannot differ), -b 64 gives the rate several batches
-CHIMERA_READS = 256               # -C reads of the at-size run; fewer is a cut
+CHIMERA_READS = 1024              # -C reads of the at-size run; fewer is a cut
 CHIMERA_SEED = 10
 CHIMERA_EVERY = 10
 CHIMERA_BREAK = (0.3, 0.7)
@@ -150,6 +184,16 @@ BIN_NAMES = ("pdist<3%", "pdist3-10%", "pdist>=10%")
 CHIMERA_PARITY = 32               # first -C reads run again on the CPU
 CHIMERA_ALN_TIES = 1              # alignments a D-chain tie may change, of
 #                                   the CHIMERA_PARITY reads
+# assign --mesh-tree runs: one process over every card on the first
+# MESH_TREE_READS single-end reads (the default of --mesh-tree-reads) and
+# the first MESH_TREE_PAIRS pairs of --pairs; its first MESH_TREE_CPU reads run
+# again on as many CPU shards as there are cards (CPU_SHARDS with
+# --device cpu), rows held by the rules of tests/test_torch_parallel.py
+MESH_TREE_READS = 100000
+MESH_TREE_PAIRS = 10000
+MESH_TREE_CPU = 32
+CPU_SHARDS = 4
+LL_RTOL, LL_ATOL = 1e-4, 0.5      # logliks of two placers
 # standard-error marks of a process that aborted
 ABORT_MARKS = ("terminate called", "Aborted", "core dumped",
                "Segmentation fault", "Fatal Python error")
@@ -170,11 +214,13 @@ def card_count(dev) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 0
 
 
-def child_env(i: int, card_per_process: bool, mesh: bool) -> dict | None:
-    """Child i's additions to the environment: with --card-per-process
-    it sees card i alone, but a --mesh run sees every card."""
-    if card_per_process and not mesh:
-        return {"CUDA_VISIBLE_DEVICES": str(i)}
+def child_env(i: int, card_per_process: bool,
+              chimera: bool = False) -> dict | None:
+    """Child i's additions to the environment of an N-process run: with
+    --card-per-process it sees card i alone, a -C child card 0 (-C runs
+    share it).  A mesh run's one process (run_mesh) sees every card."""
+    if card_per_process:
+        return {"CUDA_VISIBLE_DEVICES": "0" if chimera else str(i)}
     return None
 
 
@@ -463,28 +509,21 @@ def finish_all(children, grace: float) -> list[dict]:
         return [f.result() for f in futs]
 
 
-def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
-          base: dict | None, reads: int, extra=(),
-          chimera: bool = False) -> dict:
-    """N assign children at once on `inputs` (`reads` reads or pairs);
-    the run's per-process and per-N numbers and its gates (against base,
-    the N = 1 run).  chimera: with CHIMERA_ARGV and --chimera-out, no
-    host parity, and the -C gates (no placer built, no placement kernel
-    launched, the .p<i> chimera files against base's)."""
+def run_children(args, tag: str, n: int, argv: list[str], tsv: str,
+                 parity: int, env_of, chimera: bool = False,
+                 cpu_shards: int = 0) -> tuple[list[dict], float]:
+    """N assign children of `argv` at once, child i with `--num-processes
+    N --process-id i --coordinator 127.0.0.1:<free port>`, env_of(i)'s
+    environment, its standard error in <tag>.p<i>.stderr, and parity
+    (process 0 only) and cpu_shards for start_child; on a card K1-K3
+    counted.  Returns (each process's numbers, the launch time)."""
     d = args.work
-    tsv = os.path.join(d, f"{tag}.tsv")
-    aln = os.path.join(d, f"{tag}.aln.fa")
-    chi = os.path.join(d, f"{tag}.chi.tsv")
     port = free_port()
-    argv = [prefix, *inputs, "-o", tsv, "-a", aln, *extra]
-    if chimera:
-        argv += CHIMERA_ARGV + ["--chimera-out", chi]
     cuda = args.device != "cpu"
     children, errs, envs = [], [], []
     launched_at = time.time()
     for i in range(n):
-        env = child_env(i, args.card_per_process and cuda,
-                        "--mesh" in extra)
+        env = env_of(i)
         envs.append(env)
         errs.append(os.path.join(d, f"{tag}.p{i}.stderr"))
         with open(errs[-1], "w") as err:
@@ -492,8 +531,8 @@ def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
                 "assign", argv + ["--num-processes", str(n),
                                   "--process-id", str(i), "--coordinator",
                                   f"127.0.0.1:{port}"],
-                args, tsv, parity=args.parity if base is None and i == 0
-                and not chimera else 0, kernels=cuda, env=env, stderr=err))
+                args, tsv, parity=parity if i == 0 else 0, kernels=cuda,
+                env=env, stderr=err, cpu_shards=cpu_shards))
     procs = []
     for i, (p, err) in enumerate(zip(finish_all(children, GRACE_S),
                                      errs)):
@@ -517,8 +556,14 @@ def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
                 p["chimera_split_s_per_read"] = chimera_split(
                     p["stream_stages_s"], p["processed"][-1][1])
         procs.append(p)
-    out = {"run": tag, "procs": procs, "fails": []}
-    fails = out["fails"]
+    return procs, launched_at
+
+
+def proc_fails(tag: str, procs: list[dict], cuda: bool,
+               chimera: bool) -> list[str]:
+    """Every process exits 0 after its CLI returned 0; on a card its
+    kernel launches (launch_fails); under -C no DevicePlacer built."""
+    fails = []
     for p in procs:
         if p["rc"] != 0 or p["exit"] != 0:
             fails.append(f"{tag} process {p['process_id']} rc {p['rc']} "
@@ -530,11 +575,13 @@ def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
         if chimera and "upload_s" in p.get("clocks", {}):
             fails.append(f"{tag} process {p['process_id']} built a "
                          "DevicePlacer under -C")
-    if fails:
-        return out
-    out.update(rates(n, reads, procs, launched_at, base))
-    out["last_exit_s"] = max(p["wall_s"] for p in procs)
-    out["cpu_s"] = sum(p["cpu_s"] for p in procs)
+    return fails
+
+
+def align_out_check(out: dict, aln: str, n: int) -> None:
+    """The --align-out files of an N-process run (aln, or aln.p<i> at N >
+    1): present, their bytes in out, then removed; a fail where one is
+    missing or, at N > 1, aln itself exists."""
     names = [aln] if n == 1 else [f"{aln}.p{i}" for i in range(n)]
     out["align_out"] = {os.path.basename(f): os.path.exists(f)
                         for f in names}
@@ -544,7 +591,39 @@ def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
         if os.path.exists(f):
             os.remove(f)
     if not all(out["align_out"].values()) or os.path.exists(aln) and n > 1:
-        fails.append(f"{tag} --align-out files {out['align_out']}")
+        out["fails"].append(f"{out['run']} --align-out files "
+                            f"{out['align_out']}")
+
+
+def run_n(args, tag: str, n: int, inputs: list[str], prefix: str,
+          base: dict | None, reads: int, chimera: bool = False) -> dict:
+    """N assign children at once on `inputs` (`reads` reads or pairs);
+    the run's per-process and per-N numbers and its gates (against base,
+    the N = 1 run).  chimera: with CHIMERA_ARGV and --chimera-out, no
+    host parity, and the -C gates (no placer built, no placement kernel
+    launched, the .p<i> chimera files against base's)."""
+    d = args.work
+    tsv = os.path.join(d, f"{tag}.tsv")
+    aln = os.path.join(d, f"{tag}.aln.fa")
+    chi = os.path.join(d, f"{tag}.chi.tsv")
+    argv = [prefix, *inputs, "-o", tsv, "-a", aln]
+    if chimera:
+        argv += CHIMERA_ARGV + ["--chimera-out", chi]
+    cuda = args.device != "cpu"
+    procs, launched_at = run_children(
+        args, tag, n, argv, tsv,
+        args.parity if base is None and not chimera else 0,
+        lambda i: child_env(i, args.card_per_process and cuda, chimera),
+        chimera)
+    out = {"run": tag, "procs": procs,
+           "fails": proc_fails(tag, procs, cuda, chimera)}
+    fails = out["fails"]
+    if fails:
+        return out
+    out.update(rates(n, reads, procs, launched_at, base))
+    out["last_exit_s"] = max(p["wall_s"] for p in procs)
+    out["cpu_s"] = sum(p["cpu_s"] for p in procs)
+    align_out_check(out, aln, n)
     if base is None:
         out["tsv"] = tsv
         out["rows"] = sum(1 for _ in data_rows(tsv))
@@ -583,32 +662,221 @@ def brief(r: dict) -> dict:
         "rc", "exit", "wall_s", "cpu_s", "stream_cpu_s", "peak_rss_gb",
         "device_peak_gb", "cards_seen", "clocks", "stream_stages_s",
         "s_per_read", "chimera_split_s_per_read", "launches",
-        "kernel_ms", "aborted",
-        "abort_after_rows")}
+        "kernel_ms", "launches_by_card", "device_peaks_gb",
+        "card_busy_ms", "aborted", "abort_after_rows")}
         for p in r["procs"]]
     return keep
 
 
-def chimera_cpu(args, prefix: str, reads, base: dict) -> dict:
-    """The first CHIMERA_PARITY -C reads through the port's assign
-    CLI on the CPU, in a process of its own, with the card runs' flags;
-    its rows against the card's N = 1 rows (cpu_rows_compare)."""
+# ---------------------------------------------------------------------------
+# CPU references: -C's and --mesh-tree's first reads through the CLI on
+# the CPU, started together after the build and done before any card run
+# ---------------------------------------------------------------------------
+
+def start_cpu_ref(args, prefix: str, tag: str, fasta: str, extra,
+                  cpu_shards: int = 0):
+    """The port's assign CLI on the CPU on `fasta`, in a process of its
+    own, with the flags `extra` (and `cpu_shards` CPU shards for a mesh
+    flag).  Returns (what finish_child takes, its TSV)."""
+    tsv = os.path.join(args.work, f"{tag}.tsv")
+    return start_child("assign", [prefix, fasta, "-o", tsv, *extra], args,
+                       parity=0, device="cpu",
+                       cpu_shards=cpu_shards), tsv
+
+
+def finish_cpu_ref(started, tsv: str) -> dict:
+    got = finish_child(started)
+    return dict({k: got.get(k) for k in ("rc", "exit", "wall_s", "clocks",
+                                         "peak_rss_gb", "stream_stages_s")},
+                tsv=tsv)
+
+
+def chimera_cpu(ref: dict, n: int, base: dict) -> dict:
+    """The CPU run of the first n -C reads (CHIMERA_ARGV, the card runs'
+    flags) against the card's N = 1 rows (cpu_rows_compare)."""
+    out = {k: v for k, v in ref.items() if k != "tsv"}
+    if ref["rc"] != 0:
+        return dict(out, ok=False)
+    card = chimera_rows(base["tsv"], base["chi_tsv"])
+    tsv = ref["tsv"]
+    cpu = chimera_rows(tsv, tsv[:-len(".tsv")] + ".chi.tsv")
+    return dict(out, **cpu_rows_compare(cpu, card, n))
+
+
+# ---------------------------------------------------------------------------
+# assign --mesh-tree: one process over every card, the tree's messages in
+# node blocks
+# ---------------------------------------------------------------------------
+
+def split_rows(path: str) -> list[list[str]]:
+    """The data rows of an assignment TSV, split into fields."""
+    return [row.rstrip("\n").split("\t") for row in data_rows(path)]
+
+
+def rows_differ(got: list, want: list) -> list[str]:
+    """Rows of two assignment TSVs (split_rows) by the rules of
+    tests/test_torch_parallel.py rows_agree: the same ids in order, the
+    same alignment columns, branch and taxon, logliks within LL_RTOL
+    relative or LL_ATOL; an unplaced read unplaced in both.  Returns
+    each row that breaks them: its id and what differs."""
+    out = []
+    for k in range(max(len(got), len(want))):
+        if k >= min(len(got), len(want)) or got[k][0] != want[k][0]:
+            ids = [r[k][0] if k < len(r) else None for r in (got, want)]
+            out.append(f"row {k}: ids {ids}")
+            continue
+        g, w = got[k], want[k]
+        what = ["alignment"] if g[2:10] != w[2:10] else []
+        if "-1" in (g[10], w[10]):
+            if g[10:] != w[10:]:
+                what.append("placement")
+        else:
+            if (g[10], g[12], g[13]) != (w[10], w[12], w[13]):
+                what.append("branch or taxon")
+            lg, lw = float(g[15]), float(w[15])
+            if not abs(lg - lw) <= max(LL_RTOL * abs(lw), LL_ATOL):
+                what.append("loglik")
+        if what:
+            out.append(f"{g[0]}: {', '.join(what)}")
+    return out
+
+
+def mesh_tree_cpu(ref: dict, tsv: str) -> dict:
+    """The CPU shards' run of the first reads against the card run's
+    rows of the same reads (rows_differ): none may differ, each that
+    does is named, with both rows' placement columns (branch_id ...
+    Q_taxon) under differ_rows."""
+    out = {k: v for k, v in ref.items() if k != "tsv"}
+    if ref["rc"] != 0:
+        return dict(out, ok=False)
+    cpu = split_rows(ref["tsv"])
+    card = split_rows(tsv)[:len(cpu)]
+    differ = rows_differ(card, cpu)
+    ids = {d.split(":")[0] for d in differ}
+    rows = [{"id": g[0], "card": g[10:], "cpu": w[10:]}
+            for g, w in zip(card, cpu) if g[0] in ids]
+    return dict(out, reads=len(cpu), agree=len(cpu) - len(differ),
+                differ=differ, differ_rows=rows,
+                ok=bool(cpu) and not differ)
+
+
+def one_card_share(tsv: str, one_tsv: str) -> dict:
+    """The --mesh-tree rows against the one-card N = 1 run's rows of the
+    same reads (by id): the share of placed reads on the same branch,
+    and the quantiles (0, 25, 50, 75, 100%) of the loglik deficit (one
+    card's less the shards') of those on another.  Reported only: the
+    tree-sharded merge of both packages filters each shard's candidates
+    against its own block's best estimate and can pick another branch
+    (tests/test_torch_mesh_tree.py)."""
+    mt = {r[0]: r for r in split_rows(tsv)}
+    seen = placed = same = unplaced_differ = 0
+    deficit = []
+    for r in data_rows(one_tsv):
+        r = r.rstrip("\n").split("\t")
+        g = mt.get(r[0])
+        if g is None:
+            continue
+        seen += 1
+        if "-1" in (g[10], r[10]):
+            unplaced_differ += g[10] != r[10]
+        else:
+            placed += 1
+            if g[10] == r[10]:
+                same += 1
+            else:
+                deficit.append(float(r[15]) - float(g[15]))
+        if seen == len(mt):
+            break
+    return {"rows": len(mt), "matched": seen, "placed": placed,
+            "same_branch": same, "share": same / placed if placed
+            else None, "other_branch": len(deficit),
+            "unplaced_differ": unplaced_differ,
+            "loglik_deficit_quantiles": np.quantile(
+                deficit, [0, 0.25, 0.5, 0.75, 1]).tolist()
+            if deficit else None,
+            "deficit_below_zero": sum(x < 0 for x in deficit)}
+
+
+def run_mesh(args, flag: str, mode: str, inputs: list[str], prefix: str,
+             reads: int, shards: int, base: dict | None,
+             cpu_ref: dict | None = None) -> dict:
+    """One process over every card (on the CPU: `shards` CPU shards)
+    with `assign <flag> -a` on `inputs` (`reads` reads or pairs), flag
+    --mesh or --mesh-tree.  Gates (rc 1): it exits 0, sees `shards`
+    cards with a device peak on each and K2 and K3 launched on each, and
+    writes a row a single-end read; --mesh: its rows byte-equal to
+    base's (the N = 1 run's); --mesh-tree: each shard's message bytes
+    recorded, and (cpu_ref, the CPU shards' run of its first reads)
+    agreeing with the CPU row for row.  Reported: reads/s (its
+    efficiency: the ratio to base), load, upload, tree_shards and merge
+    seconds, each card's busy ms against the placement's host seconds,
+    K1-K3 a card, and under --mesh-tree the share of rows on base's
+    branch (one_card_share)."""
     d = args.work
-    P = min(CHIMERA_PARITY, len(reads))
-    fa = write_reads(os.path.join(d, "chim_cpu.fasta"), reads[:P])
-    tsv, chi = (os.path.join(d, f"chim_cpu{x}.tsv") for x in ("", ".chi"))
-    got = finish_child(start_child(
-        "assign", [prefix, fa, "-o", tsv, *CHIMERA_ARGV, "--chimera-out",
-                   chi], args, parity=0, device="cpu"))
-    got.pop("stamps", None)
-    out = {"rc": got["rc"], "exit": got["exit"], "wall_s": got["wall_s"],
-           "clocks": got.get("clocks"),
-           "stream_stages_s": got.get("stream_stages_s")}
-    if got["rc"] == 0:
-        card = chimera_rows(base["tsv"], base["chi_tsv"])
-        out.update(cpu_rows_compare(chimera_rows(tsv, chi), card, P))
-    else:
-        out["ok"] = False
+    tag = f"{mode}_{flag[2:].replace('-', '_')}"
+    tsv = os.path.join(d, f"{tag}.tsv")
+    aln = os.path.join(d, f"{tag}.aln.fa")
+    cuda = args.device != "cpu"
+    tree = flag == "--mesh-tree"
+    argv = [prefix, *inputs, "-o", tsv, "-a", aln, flag]
+    procs, launched_at = run_children(args, tag, 1, argv, tsv, 0,
+                                      lambda i: None,
+                                      cpu_shards=0 if cuda else shards)
+    out = {"run": tag, "procs": procs,
+           "fails": proc_fails(tag, procs, cuda, False)}
+    fails, p = out["fails"], procs[0]
+    if p["rc"] == 0:
+        if tree:
+            got = p.get("shards", [])
+            out["shard_msg_bytes"] = [x["msg_bytes"] for x in got]
+            if len(got) != shards or min(out["shard_msg_bytes"]) <= 0:
+                fails.append(f"{tag} shards {got}: {shards} asked")
+        if cuda:
+            peaks = p.get("device_peaks_gb") or []
+            if p["cards_seen"] != shards or len(peaks) != shards \
+                    or not all(x and x > 0 for x in peaks):
+                fails.append(f"{tag} saw {p['cards_seen']} of {shards} "
+                             f"cards, device peaks {peaks}")
+            by = p.get("launches_by_card", {})
+            idle = {k: sorted(set(map(str, range(shards)))
+                              - set(by.get(k, {})))
+                    for k in ("est", "sep_optimize")}
+            if any(idle.values()):
+                fails.append(f"{tag} cards without a launch: {idle}")
+    if fails:
+        return out
+    out.update(rates(1, reads, procs, launched_at, base))
+    out["cpu_s"] = p["cpu_s"]
+    align_out_check(out, aln, 1)
+    out["tsv"] = tsv
+    out["rows"] = sum(1 for _ in data_rows(tsv))
+    if mode == "se" and out["rows"] != reads:
+        fails.append(f"{tag} rows {out['rows']} of {reads} reads")
+    c = p["clocks"]
+    place_s = p["stream_stages_s"].get("place_s")
+    busy = p.get("card_busy_ms") or {}
+    out["placement"] = {
+        "load_s": c.get("load_s"), "upload_s": c.get("upload_s"),
+        "tree_shards_s": c.get("tree_shards_s"), "place_s": place_s,
+        "merge_s": c.get("merge_s"), "card_busy_ms": busy,
+        "busy_over_place": sum(busy.values()) / 1e3 / place_s
+        if busy and place_s else None,
+        "launches_by_card": p.get("launches_by_card"),
+        "device_peaks_gb": p.get("device_peaks_gb"),
+        "shards": p.get("shards")}
+    if not tree:
+        out.update(rows_compare([tsv], base["tsv"]))
+        if not out["rows_equal"] or out["rows"] != out["rows_ref"]:
+            fails.append(f"{tag} rows differ from one process: "
+                         f"{out['rows_differ']} of {out['rows_ref']}")
+        return out
+    if base is not None:
+        out["one_card"] = one_card_share(tsv, base["tsv"])
+    if cpu_ref is not None:
+        c = out["cpu"] = mesh_tree_cpu(cpu_ref, tsv)
+        if not c["ok"]:
+            fails.append(f"{tag} rows against the CPU shards': "
+                         f"{c.get('differ')} (rc {c['rc']})")
     return out
 
 
@@ -618,9 +886,8 @@ def parse_counts(text: str) -> list[int]:
     return [int(x) for x in text.split(",") if x] if text else []
 
 
-def write_pairs(d: str, fwd, rev) -> list[str]:
-    paths = [os.path.join(d, "pairs_1.fasta"), os.path.join(d,
-                                                            "pairs_2.fasta")]
+def write_pairs(d: str, name: str, fwd, rev) -> list[str]:
+    paths = [os.path.join(d, f"{name}_{k}.fasta") for k in (1, 2)]
     for path, mates in zip(paths, (fwd, rev)):
         with open(path, "w") as fh:
             fh.write("".join(f">{r.id} {r.desc}\n{r.seq}\n" for r in mates))
@@ -644,6 +911,13 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", action="store_true",
                     help="one more single-end run: one process, "
                          "assign --mesh over every card")
+    ap.add_argument("--mesh-tree", action="store_true",
+                    help="one more single-end run and one more paired "
+                         "run: one process, assign --mesh-tree over "
+                         "every card")
+    ap.add_argument("--mesh-tree-reads", type=int, default=MESH_TREE_READS,
+                    help="the first reads of the single-end file that "
+                         "the --mesh-tree run assigns")
     ap.add_argument("--parity", type=int, default=128,
                     help="reads of process 0 of each N = 1 run held "
                          "against the host path")
@@ -669,9 +943,12 @@ def main(argv=None) -> int:
     pe_ns = parse_counts(args.pair_processes) if args.pairs else []
     ch_ns = parse_counts(args.chimera_processes) \
         if args.chimera_reads else []
-    if not se_ns + pe_ns + ch_ns:
-        ap.error("no run: --reads 0 and no --pair-processes or "
-                 "--chimera-reads")
+    mt_reads = min(args.mesh_tree_reads, args.reads) \
+        if args.mesh_tree else 0
+    mt_pairs = min(MESH_TREE_PAIRS, args.pairs) if args.mesh_tree else 0
+    if not se_ns + pe_ns + ch_ns and not mt_reads + mt_pairs:
+        ap.error("no run: --reads 0 and no --pair-processes, "
+                 "--chimera-reads or --mesh-tree")
     for ns in (se_ns, pe_ns, ch_ns):
         if ns and (ns[0] != 1 or sorted(set(ns)) != ns):
             ap.error("process counts rise from 1: " + ",".join(map(str, ns)))
@@ -680,9 +957,11 @@ def main(argv=None) -> int:
     from hmmufotu_tpu_torch._cuda import resolve_device
     dev = resolve_device(args.device)
     cards = card_count(dev)
-    if args.card_per_process and max(all_ns) > cards:
-        ap.error(f"--card-per-process needs {max(all_ns)} cards; "
+    # -C runs share card 0: --card-per-process gives cards to the others
+    if args.card_per_process and max(se_ns + pe_ns, default=0) > cards:
+        ap.error(f"--card-per-process needs {max(se_ns + pe_ns)} cards; "
                  f"{cards} seen")
+    shards = cards if dev.type == "cuda" else CPU_SHARDS
     n_nodes = 2 * args.leaves - 1
     cuts = ([("nodes", f"{GG97_NODES:,} nodes", f"{n_nodes:,} nodes")]
             if n_nodes < GG97_NODES else [])
@@ -691,9 +970,14 @@ def main(argv=None) -> int:
         (args.chimera_reads, "-C reads", ch_ns)) if ns]
     if ch_ns and args.chimera_reads < CHIMERA_READS:
         runs[-1] += f" (of {CHIMERA_READS} asked)"
+    mt = [f"{k:,} {what}" for k, what in ((mt_reads, "reads"),
+                                          (mt_pairs, "pairs")) if k]
+    if mt:
+        runs.append("the first " + " and ".join(mt) + " under --mesh-tree")
     cuts += [("reads", CONFIG5_READS, ", ".join(runs)),
              ("hosts", "N hosts (BASELINE configs #4-#5)",
-              f"processes of one host, {max(all_ns)} at most")]
+              f"processes of one host, {max(all_ns, default=1)} at "
+              "most")]
     why = [w for w in [args.why] if w] + [
         "every run loads the whole DB in each process and fits one chip "
         "call with the build", "the port's --num-processes joins "
@@ -702,6 +986,9 @@ def main(argv=None) -> int:
     if ch_ns:
         why.append("-C places every read on the host in f64, so its reads "
                    "are those that fit the call")
+    if mt:
+        why.append("the --mesh-tree runs are one process each, their "
+                   "reads cut for time")
     res = {"device": str(dev), "card": card_line(dev), "cards": cards,
            "nproc": nproc(), "free_total_gb": free_total_gb(),
            "leaves": args.leaves, "n_nodes": n_nodes,
@@ -732,20 +1019,31 @@ def main(argv=None) -> int:
     tree = input_tree(d)
     L = tree.cs_len
     r0, Wr = site_window(L, REGION_COLS)
-    se = write_fasta(os.path.join(d, "reads.fasta"), simulate_reads(
-        tree, np.random.default_rng(READS_SEED), args.reads,
-        region=(r0, r0 + Wr))) if se_ns else ""
+    se_reads = simulate_reads(tree, np.random.default_rng(READS_SEED),
+                              args.reads, region=(r0, r0 + Wr)) \
+        if se_ns or mt_reads else []
+    se = write_fasta(os.path.join(d, "reads.fasta"), se_reads) \
+        if se_ns else ""
+    mt_se = [write_fasta(os.path.join(d, "mt_reads.fasta"),
+                         se_reads[:mt_reads])] if mt_reads else []
+    # the first reads of the --mesh-tree run again on CPU shards
+    mt_cpu = write_fasta(os.path.join(d, "mt_cpu.fasta"),
+                         se_reads[:min(MESH_TREE_CPU, mt_reads)]) \
+        if mt_reads else ""
+    del se_reads
     chim_reads = simulate_chimera_reads(
         tree, np.random.default_rng(CHIMERA_SEED), args.chimera_reads,
         (r0, r0 + Wr)) if ch_ns else []
     chim = write_reads(os.path.join(d, "chim.fasta"), chim_reads) \
         if ch_ns else ""
-    pe = []
-    if pe_ns:
+    pe = mt_pe = []
+    if pe_ns or mt_pairs:
         fwd, rev, _, _ = simulate_pairs(
             tree, args.pairs, r0, r0 + Wr, READ_LEN,
             np.random.default_rng(PAIRS_SEED), *FRAGMENT)
-        pe = write_pairs(d, fwd, rev)
+        pe = write_pairs(d, "pairs", fwd, rev)
+        mt_pe = write_pairs(d, "mt_pairs", fwd[:mt_pairs],
+                            rev[:mt_pairs]) if mt_pairs else []
         del fwd, rev
     del tree
     res.update(cs_len=L, region=[r0, r0 + Wr], fragment_columns=FRAGMENT,
@@ -767,14 +1065,33 @@ def main(argv=None) -> int:
         print(json.dumps(res))
         return 1
 
-    # ---- 3-5. the runs ----------------------------------------------------
-    shared = dev.type == "cuda" and not args.card_per_process
+    # ---- 3. CPU references, both at once, before any card run --------
+    refs = {}
+    t = time.perf_counter()
+    if ch_ns:
+        P = min(CHIMERA_PARITY, len(chim_reads))
+        refs["chim"] = start_cpu_ref(
+            args, prefix, "chim_cpu", write_reads(os.path.join(
+                d, "chim_cpu.fasta"), chim_reads[:P]),
+            CHIMERA_ARGV + ["--chimera-out",
+                            os.path.join(d, "chim_cpu.chi.tsv")])
+    if mt_reads:
+        refs["mesh_tree"] = start_cpu_ref(args, prefix, "mt_cpu", mt_cpu,
+                                          ["--mesh-tree"], shards)
+    refs = {k: finish_cpu_ref(*v) for k, v in refs.items()}
+    res["t_cpu_refs_s"] = time.perf_counter() - t
+    log("CPU references: " + json.dumps(refs))
+    progress()
+
+    # ---- 4-6. the runs ----------------------------------------------------
     free_gb = res["free_total_gb"]
     for mode, ns, inputs, reads in (
             ("se", se_ns, [se], args.reads), ("pe", pe_ns, pe, args.pairs),
             ("chim", ch_ns, [chim], args.chimera_reads)):
         res[mode] = {}
         base = None
+        shared = dev.type == "cuda" and (not args.card_per_process
+                                         or mode == "chim")
         for n in ns:
             if base is not None:
                 one = base["procs"][0]
@@ -795,33 +1112,40 @@ def main(argv=None) -> int:
                 if r["fails"]:
                     break
                 base = r
-        if mode == "se" and args.mesh and base is not None:
-            r = run_n(args, "se_mesh", 1, inputs, prefix, base, reads,
-                      extra=["--mesh"])
-            seen = [p.get("cards_seen") for p in r["procs"]]
-            if seen != [cards]:
-                r["fails"].append(f"se_mesh saw {seen} of {cards} cards")
-            res["mesh"] = r
+        mesh_runs = [("--mesh", reads, inputs, None)] \
+            if mode == "se" and args.mesh and base is not None else []
+        n_mt = {"se": mt_reads, "pe": mt_pairs}.get(mode)
+        if n_mt:
+            se_run = mode == "se"
+            mesh_runs.append(("--mesh-tree", n_mt, mt_se if se_run else mt_pe,
+                              refs.get("mesh_tree") if se_run else None))
+        for flag, n_r, files, ref in mesh_runs:
+            r = run_mesh(args, flag, mode, files, prefix, n_r, shards,
+                         base, ref)
+            key = "mesh" if flag == "--mesh" else f"mesh_tree_{mode}"
+            res[key] = r
             res["fails"] += r["fails"]
-            log("se --mesh: " + json.dumps(brief(r)))
+            log(f"{mode} {flag}: " + json.dumps(brief(r)))
             progress()
         if mode == "chim" and base is not None:
             res["chimera_detection"] = detection(base["tsv"],
                                                  base["chi_tsv"])
             log("-C detection: " + json.dumps(res["chimera_detection"]))
-            c = res["chimera_cpu"] = chimera_cpu(args, prefix, chim_reads,
-                                                 base)
+            c = res["chimera_cpu"] = chimera_cpu(refs["chim"], P, base)
             log("-C on the CPU: " + json.dumps(c))
             if not c["ok"]:
                 res["fails"].append(f"-C rows of the CPU run: {c}")
             progress()
-    # every abort seen, also of a run whose gates failed for it
+    # every abort seen, also of a run whose gates failed for it, and the
+    # processes scanned
+    runs = [r for m in ("se", "pe", "chim") for r in res[m].values()] \
+        + [res[k] for k in ("mesh", "mesh_tree_se", "mesh_tree_pe")
+           if k in res]
+    res["processes_scanned"] = sum(len(r["procs"]) for r in runs)
     res["aborts"] = [
         {"run": r["run"], "process_id": p["process_id"], "exit": p["exit"],
          "after_rows": p["abort_after_rows"], "lines": p["abort_lines"]}
-        for r in [r for m in ("se", "pe", "chim")
-                  for r in res[m].values()]
-        + ([res["mesh"]] if "mesh" in res else [])
+        for r in runs
         for p in r["procs"] if p["aborted"] or p["abort_after_rows"]]
     progress()
     print(json.dumps(res))

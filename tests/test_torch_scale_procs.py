@@ -189,12 +189,16 @@ def test_abort_scan(scripts_path):
 
 
 def test_child_env(scripts_path):
-    """--card-per-process: child i sees card i alone; the --mesh run's
-    one process sees every card."""
+    """--card-per-process: child i sees card i alone, a -C child card 0;
+    without it they share the card.  (A mesh run's one process sees
+    every card: test_mesh_harness_runs.)"""
     from torch_scale_procs import child_env
-    assert child_env(2, True, False) == {"CUDA_VISIBLE_DEVICES": "2"}
-    assert child_env(0, True, True) is None
-    assert child_env(1, False, False) is None
+    assert child_env(2, True) == {"CUDA_VISIBLE_DEVICES": "2"}
+    assert child_env(0, True) == {"CUDA_VISIBLE_DEVICES": "0"}
+    assert child_env(1, False) is None
+    assert child_env(5, True, chimera=True) == {
+        "CUDA_VISIBLE_DEVICES": "0"}
+    assert child_env(5, False, chimera=True) is None
 
 
 def test_rows_compare(scripts_path, tmp_path):
@@ -262,7 +266,7 @@ def test_chimera_harness_runs(chimera_harness):
     got, work = chimera_harness
     assert got["fails"] == [] and got["aborts"] == []
     assert got["se"] == {} and got["pe"] == {}
-    assert got["reduced"]["to"] == ("127 nodes; 40 -C reads (of 256 "
+    assert got["reduced"]["to"] == ("127 nodes; 40 -C reads (of 1024 "
                                     "asked); processes of one host, 2 at "
                                     "most")
     one, two = got["chim"]["1"], got["chim"]["2"]
@@ -441,3 +445,204 @@ def test_cpu_rows_compare(scripts_path):
     assert not cpu_rows_compare(dict(card, r9=(False, row("r9"))),
                                 card, 5)["ok"]
     assert not cpu_rows_compare(same, card, 5)["ok"]
+
+
+# ---------------------------------------------------------------------------
+# assign --mesh and --mesh-tree runs
+# ---------------------------------------------------------------------------
+
+MESH_TREE_SHAPE = ["--leaves", "64", "--length", "600", "--reads", "32",
+                   "--pairs", "8", "--processes", "1", "--pair-processes",
+                   "1", "--mesh", "--mesh-tree", "--parity", "16",
+                   "--device", "cpu", "--eval-engine", "numpy"]
+
+
+@pytest.fixture(scope="module")
+def mesh_tree_harness(tmp_path_factory):
+    """One CPU run of the harness with --mesh and --mesh-tree at the tiny
+    shape (four CPU shards): its JSON line and work directory."""
+    work = tmp_path_factory.mktemp("mesh_tree")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, os.path.join(SCRIPTS, "torch_scale_procs.py")]
+        + MESH_TREE_SHAPE + ["--work", str(work)],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1]), work
+
+
+@pytest.mark.parametrize("mode,reads", [("se", 32), ("pe", 8)])
+def test_mesh_tree_harness_runs(mesh_tree_harness, mode, reads):
+    """The --mesh-tree run after the N = 1 run of each input: one process
+    over four CPU shards (node blocks of 32 of the 127 nodes, each one's
+    message bytes), its clocks, its rows against the N = 1 run's branches,
+    and for single-end reads the CPU shards' run of the first 32 reads
+    agreeing row for row."""
+    got, work = mesh_tree_harness
+    assert got["fails"] == [] and got["aborts"] == []
+    assert got["processes_scanned"] == 5
+    assert got["reduced"]["to"] == (
+        "127 nodes; 32 reads, 8 pairs, the first 32 reads and 8 pairs "
+        "under --mesh-tree; processes of one host, 1 at most")
+    r = got[f"mesh_tree_{mode}"]
+    assert r["fails"] == [] and r["processes"] == 1 and r["reads"] == reads
+    assert r["rows"] == reads
+    assert r["reads_per_s_stream"] == reads / r["stream_gather_s"]
+    assert r["align_out"] == {f"{mode}_mesh_tree.aln.fa": True}
+    p = r["procs"][0]
+    assert p["rc"] == p["exit"] == 0 and not p["aborted"]
+    assert p["cards_seen"] == 0 and "device_peaks_gb" not in p
+    assert p["cuda_visible_devices"] is None
+    pl = r["placement"]
+    assert [s["node_lo"] for s in pl["shards"]] == [0, 32, 64, 96]
+    assert {s["device"] for s in pl["shards"]} == {"cpu"}
+    # [32, 4, 600] f32 up and down messages a shard, the last one padded
+    assert r["shard_msg_bytes"] == [2 * 32 * 4 * 600 * 4] * 4
+    assert pl["tree_shards_s"] > 0 and pl["merge_s"] > 0
+    assert 0 < pl["merge_s"] < pl["place_s"] < r["stream_s"]
+    assert pl["card_busy_ms"] == {} and pl["busy_over_place"] is None
+    one = r["one_card"]
+    assert one["rows"] == one["matched"] == reads
+    assert one["same_branch"] + one["other_branch"] == one["placed"]
+    assert one["share"] == one["same_branch"] / one["placed"]
+    if mode == "se":
+        cpu = r["cpu"]
+        assert cpu["ok"] and cpu["reads"] == cpu["agree"] == 32
+        assert cpu["differ"] == cpu["differ_rows"] == []
+        assert "tree_shards_s" in cpu["clocks"]
+        assert (work / "mt_cpu.tsv").exists()
+    else:
+        assert "cpu" not in r
+    assert got[mode]["1"]["fails"] == []
+
+
+def test_mesh_harness_runs(mesh_tree_harness):
+    """The --mesh run after the single-end N = 1 run: one process over
+    four CPU shards (a replica a shard, no tree shards), its rows
+    byte-equal to the N = 1 run's, its placement clocks."""
+    got, _ = mesh_tree_harness
+    r = got["mesh"]
+    assert r["run"] == "se_mesh" and r["fails"] == []
+    assert r["processes"] == 1 and r["reads"] == 32
+    assert r["rows"] == r["rows_ref"] == 32 and r["rows_equal"]
+    assert r["rows_differ"] == 0
+    assert r["align_out"] == {"se_mesh.aln.fa": True}
+    p = r["procs"][0]
+    assert p["rc"] == p["exit"] == 0 and p["cuda_visible_devices"] is None
+    pl = r["placement"]
+    assert pl["shards"] is None and pl["tree_shards_s"] is None
+    assert 0 < pl["place_s"] < r["stream_s"]
+    assert "shard_msg_bytes" not in r and "one_card" not in r
+
+
+def test_mesh_tree_rows_match_reference_cli(mesh_tree_harness, tmp_path):
+    """The --mesh-tree run's rows against the reference package's assign
+    CLI with --mesh-tree on a four-device CPU mesh, on the same DB files
+    and reads: the same ids, alignments, branch and taxon, logliks within
+    the pipeline tolerances."""
+    from conftest import run_on_cpu_mesh
+    from test_torch_parallel import rows_agree
+    _, work = mesh_tree_harness
+    out = str(tmp_path / "ref.tsv")
+    code = ("from hmmufotu_tpu.cli.assign import main\n"
+            "import jax\n"
+            "assert len(jax.devices()) == 4\n"
+            f"assert main([{str(work / 'db')!r}, "
+            f"{str(work / 'mt_reads.fasta')!r}, '-o', {out!r}, "
+            "'--mesh-tree']) == 0\n")
+    res = run_on_cpu_mesh(code, n_devices=4, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    port = tsv_rows(work / "se_mesh_tree.tsv")
+    assert len(port) == 32
+    rows_agree(port, tsv_rows(out))
+
+
+def test_mesh_tree_doctored_cpu_row_fails(scripts_path, mesh_tree_harness,
+                                         tmp_path, monkeypatch, capsys):
+    """One CPU row off by 5 nats in loglik: the harness exits 1 and names
+    the read.  The --mesh-tree run alone (--processes ''), on the
+    fixture's DB files (build_db reuses them)."""
+    import shutil
+    import torch_scale_procs as tsp
+    _, work = mesh_tree_harness
+    for f in os.listdir(work):
+        if f.startswith("db") or f == "db_shape.json":
+            shutil.copy(work / f, tmp_path / f)
+    build = tsp.build_db
+    monkeypatch.setattr(tsp, "build_db",
+                        lambda args, d: build(args, d, reuse=True))
+    split = tsp.split_rows
+
+    def doctored(path):
+        rows = split(path)
+        if path.endswith("mt_cpu.tsv"):
+            rows[3][15] = str(float(rows[3][15]) + 5.0)
+        return rows
+
+    monkeypatch.setattr(tsp, "split_rows", doctored)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    rc = tsp.main(["--leaves", "64", "--length", "600", "--reads", "8",
+                   "--pairs", "0", "--processes", "", "--parity", "0",
+                   "--mesh-tree", "--device", "cpu", "--eval-engine",
+                   "numpy", "--work", str(tmp_path)])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 1
+    assert got["build"]["reused"]
+    assert got["fails"] == [got["mesh_tree_se"]["fails"][0]]
+    cpu = got["mesh_tree_se"]["cpu"]
+    assert cpu["differ"] == ["r3: loglik"]
+    card = tsp.split_rows(str(tmp_path / "se_mesh_tree.tsv"))[3]
+    assert [r["id"] for r in cpu["differ_rows"]] == ["r3"]
+    assert cpu["differ_rows"][0]["card"] == card[10:]
+    assert float(cpu["differ_rows"][0]["cpu"][5]) == \
+        pytest.approx(float(card[15]) + 5.0, rel=1e-6)
+    assert got["mesh_tree_se"]["cpu"]["reads"] == 8
+    assert got["se"] == {} and "one_card" not in got["mesh_tree_se"]
+
+
+def test_rows_differ(scripts_path):
+    """The rows rule of tests/test_torch_parallel.py, naming each row
+    that breaks it and what differs."""
+    from torch_scale_procs import rows_differ
+
+    def row(rid, aln="AC", branch="7", taxon="3", ll="-100.0"):
+        return [rid, "d"] + ["1"] * 7 + [aln, branch, "0.5", taxon, "t",
+                                         "0.1", ll, "20", "20"]
+
+    want = [row("r0"), row("r1"), row("r2", branch="-1", ll="nan")]
+    assert rows_differ([list(r) for r in want], want) == []
+    # within 1e-4 relative or 0.5
+    assert rows_differ([row("r0", ll="-100.4"), row("r1"), want[2]],
+                       want) == []
+    got = [row("r0", aln="A-C"), row("r1", branch="8", ll="-101"),
+           row("r2")]
+    assert rows_differ(got, want) == ["r0: alignment",
+                                      "r1: branch or taxon, loglik",
+                                      "r2: placement"]
+    assert rows_differ(want[:2], want) == ["row 2: ids [None, 'r2']"]
+    assert rows_differ([row("r9")] + want[1:], want) == [
+        "row 0: ids ['r9', 'r0']"]
+
+
+def test_one_card_share(scripts_path, tmp_path):
+    """Rows of the --mesh-tree run against the one-card run's by id: the
+    share on the same branch and the loglik deficit of the others."""
+    from torch_scale_procs import one_card_share
+
+    def row(rid, branch, ll):
+        return "\t".join([rid, "d"] + ["1"] * 8
+                         + [branch, "0.5", "3", "t", "0.1", ll, "20",
+                            "20"]) + "\n"
+
+    head = "# x\nid\tdescription\n"
+    one, mt = tmp_path / "one.tsv", tmp_path / "mt.tsv"
+    one.write_text(head + row("r0", "5", "-10") + row("r1", "6", "-20")
+                   + row("r2", "7", "-30") + row("r3", "-1", "nan")
+                   + row("r4", "9", "-50"))
+    mt.write_text(head + row("r0", "5", "-10") + row("r1", "4", "-23")
+                  + row("r2", "8", "-29") + row("r3", "-1", "nan"))
+    got = one_card_share(str(mt), str(one))
+    assert got == {"rows": 4, "matched": 4, "placed": 3, "same_branch": 1,
+                   "share": 1 / 3, "other_branch": 2, "unplaced_differ": 0,
+                   "loglik_deficit_quantiles": [-1.0, 0.0, 1.0, 2.0, 3.0],
+                   "deficit_below_zero": 1}
