@@ -63,11 +63,15 @@ holds the gathered rows against one process's.  Steps:
              with a device peak and K2, K3 launched on each, and writes
              a row a single-end read; --mesh: rows byte-equal to the N =
              1 run's; --mesh-tree: each shard's message bytes recorded,
-             and its first reads' rows agree with the CPU shards' by the
-             rules of tests/test_torch_parallel.py (rows_differ; each
-             read that differs named, with both rows' placement
-             columns).  Any failure: rc 1.  Nothing falls back to the
-             CPU or to one process;
+             and its first reads' rows held against the CPU shards' by
+             the rules of tests/test_torch_parallel.py (rows_differ),
+             but a row that differs in branch or taxon alone passes as
+             an f64 near tie (f64_near_ties: both branches scored by
+             the host f64 SEP path within TIE_ULPS f32 ulps of its best,
+             on at most TIE_SHARE of the rows); each read that differs
+             named, with both rows' placement columns and its f64
+             scores.  Any failure: rc 1.  Nothing falls back to the CPU
+             or to one process;
   6. guards  an N is skipped, with its numbers in `skipped`, when N x
              (the N = 1 run's peak RSS) + 5 GB exceeds `free -g`'s total
              or, with the card shared, N x (its device peak + 1 GB)
@@ -98,7 +102,8 @@ launches a card and device peaks a card; a --mesh-tree run its rows
 against the one-card N = 1 run's (one_card_share: the share on the same
 branch, the loglik deficit of the others; the reference's tree-sharded
 merge can pick another branch).  `processes_scanned` counts the processes whose
-standard error the abort scan read.
+standard error the abort scan read, the CPU references' among them;
+`aborts` lists each that aborted, with its standard error's tail.
 After the -C runs: the detection of the planted chimeras by the parents'
 p-distance (`chimera_detection`) and the CPU run (`chimera_cpu`).  One
 JSON line, the last the script prints, with every number, the card line, nproc,
@@ -115,10 +120,10 @@ Four H100s, the gg_97 shape, one process a card, --mesh and --mesh-tree:
         --reads 400000 --pairs 50000 --processes 1,2,4 \\
         --pair-processes 1,2,4 --card-per-process --mesh --mesh-tree \\
         --progress out/procs4.json
-    (--mesh-tree alone: --reads 20000 --pairs 10000 --processes ''
-    --pair-processes '' --mesh-tree;
-    -C on the host's cores, every process on card 0: --reads 0
-    --pair-processes '' --chimera-reads 1024 --chimera-processes 1,4,8)
+    (--mesh-tree alone: --reads 20000 --pairs 0 --processes ''
+    --mesh-tree --mesh-tree-reads 20000 --parity 0; with -C on the
+    host's cores, every process on card 0, in the same run:
+    --chimera-reads 512 --chimera-processes 1,4,8)
 One H100, the gg_97 shape, assign -C in one process and in two sharing
 the card (--reads 0: no single-end runs):
     python scripts/torch_scale_procs.py --leaves 75000 --length 6000 \\
@@ -194,6 +199,14 @@ MESH_TREE_PAIRS = 10000
 MESH_TREE_CPU = 32
 CPU_SHARDS = 4
 LL_RTOL, LL_ATOL = 1e-4, 0.5      # logliks of two placers
+UNPLACED = "NULL"                 # the branch_id of an unplaced read's row
+# a row of the CPU shards whose branch or taxon alone differs passes as
+# an f32 near tie when both branches' f64 scores lie within TIE_ULPS f32
+# ulps of the f64 best (scripts/torch_scale_e2e.py agreement's rule), on
+# at most TIE_SHARE of the rows (chip_smoke.py compare_runs' limit for
+# synthetic-DB reads)
+TIE_ULPS = 8
+TIE_SHARE = 0.25
 # standard-error marks of a process that aborted
 ABORT_MARKS = ("terminate called", "Aborted", "core dumped",
                "Segmentation fault", "Fatal Python error")
@@ -677,18 +690,30 @@ def start_cpu_ref(args, prefix: str, tag: str, fasta: str, extra,
                   cpu_shards: int = 0):
     """The port's assign CLI on the CPU on `fasta`, in a process of its
     own, with the flags `extra` (and `cpu_shards` CPU shards for a mesh
-    flag).  Returns (what finish_child takes, its TSV)."""
+    flag), its standard error in <tag>.stderr.  Returns what
+    finish_cpu_ref takes."""
     tsv = os.path.join(args.work, f"{tag}.tsv")
-    return start_child("assign", [prefix, fasta, "-o", tsv, *extra], args,
-                       parity=0, device="cpu",
-                       cpu_shards=cpu_shards), tsv
+    err = os.path.join(args.work, f"{tag}.stderr")
+    with open(err, "w") as fh:
+        started = start_child("assign", [prefix, fasta, "-o", tsv, *extra],
+                              args, parity=0, device="cpu", stderr=fh,
+                              cpu_shards=cpu_shards)
+    return started, tsv, err
 
 
-def finish_cpu_ref(started, tsv: str) -> dict:
+def finish_cpu_ref(started, tsv: str, err: str) -> dict:
+    """A CPU reference's numbers and its TSV, and the abort scan of its
+    standard error (its tail where it exited non-zero)."""
     got = finish_child(started)
-    return dict({k: got.get(k) for k in ("rc", "exit", "wall_s", "clocks",
-                                         "peak_rss_gb", "stream_stages_s")},
-                tsv=tsv)
+    out = dict({k: got.get(k) for k in ("rc", "exit", "wall_s", "clocks",
+                                        "peak_rss_gb", "stream_stages_s")},
+               tsv=tsv, process_id=0)
+    with open(err) as fh:
+        text = fh.read()
+    out.update(abort_scan(text, out["rc"], out["exit"]))
+    if out["exit"] != 0:
+        out["stderr_tail"] = text[-3000:]
+    return out
 
 
 def chimera_cpu(ref: dict, n: int, base: dict) -> dict:
@@ -727,7 +752,7 @@ def rows_differ(got: list, want: list) -> list[str]:
             continue
         g, w = got[k], want[k]
         what = ["alignment"] if g[2:10] != w[2:10] else []
-        if "-1" in (g[10], w[10]):
+        if UNPLACED in (g[10], w[10]):
             if g[10:] != w[10:]:
                 what.append("placement")
         else:
@@ -741,23 +766,144 @@ def rows_differ(got: list, want: list) -> list[str]:
     return out
 
 
-def mesh_tree_cpu(ref: dict, tsv: str) -> dict:
+def near_tie(best: float, card: float, cpu: float) -> dict:
+    """Two branches' f64 logliks against the f64 best `best`: each one's
+    gap (best less it) in f32 ulps of |best|, and whether both lie within
+    TIE_ULPS of it, either way (scripts/torch_scale_e2e.py agreement)."""
+    ulp = abs(best) * 2.0 ** -23
+    gaps = {k: (best - x) / ulp for k, x in (("card", card), ("cpu", cpu))}
+    tie = all(abs(x) <= TIE_ULPS for x in gaps.values())
+    return {"ulp": ulp, "card_gap_ulps": gaps["card"],
+            "cpu_gap_ulps": gaps["cpu"],
+            "verdict": "near tie" if tie else "not a near tie"}
+
+
+def aligned_read(row: list):
+    """A row's aligned read as the host placer takes it: its alignment
+    column (the string the -a FASTA holds) encoded, and its 0-based
+    CS_start and CS_end."""
+    from hmmufotu_tpu_torch.alphabet import DNA
+    return DNA.encode_upper(row[9]), int(row[6]) - 1, int(row[7]) - 1
+
+
+class F64Scores:
+    """The f64 host SEP path (pipeline.assign_read's steps) on the DB
+    files at `prefix`, the tree loaded on the host on the first call (no
+    upload, nothing of the placer).  Called with a pair of rows of one
+    read, it places the read (its alignment column, the string the -a
+    FASTA holds, from CS_start to CS_end) as assign_read does: get_seed,
+    estimate_seq, filter_placements, place_seq, and gives the best f64
+    loglik L* of those candidates; then it scores each row's branch c->p
+    alone: tree.estimate_seq at PTLoc(start, end, c, the p-distance
+    get_seed gives c), then tree.place_seq.  Logliks at full precision
+    (PTPlacement.loglik), never the TSV's printed ones."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+        self.tree = None
+        self.load_s = None
+        self.score_s = 0.0
+
+    def best(self, seq, start: int, end: int):
+        """The f64 host path's candidates' best placement (its L*)."""
+        from hmmufotu_tpu_torch import pipeline as pl
+        places = pl.estimate_seq(self.tree, seq,
+                                 pl.get_seed(self.tree, seq, start, end))
+        places = pl.place_seq(self.tree, seq, pl.filter_placements(places))
+        return max(places, key=lambda p: p.loglik)
+
+    def branch(self, seq, start: int, end: int, branch: str) -> float:
+        """The f64 loglik of the read placed on `branch` (c->p) alone."""
+        from hmmufotu_tpu_torch.phylo.tree import PTLoc, p_dist
+        c, p = map(int, branch.split("->"))
+        if int(self.tree.parent[c]) != p:
+            return float("nan")         # not a branch: never a near tie
+        loc = PTLoc(start, end, c, p_dist(self.tree.seqs[c], seq, start,
+                                          end))
+        return self.tree.place_seq(
+            seq, self.tree.estimate_seq(seq, loc)).loglik
+
+    def __call__(self, card: list, cpu: list) -> dict:
+        if self.tree is None:
+            from hmmufotu_tpu_torch.phylo.tree import PTUnrooted
+            t = time.perf_counter()
+            self.tree = PTUnrooted.load(self.prefix + ".ptu.npz")
+            self.load_s = time.perf_counter() - t
+        t = time.perf_counter()
+        seq, start, end = aligned_read(card)
+        best = self.best(seq, start, end)
+        out = {"best_branch": best.get_id(), "best_loglik": best.loglik,
+               "card_branch": card[10], "cpu_branch": cpu[10],
+               "card_loglik": self.branch(seq, start, end, card[10]),
+               "cpu_loglik": self.branch(seq, start, end, cpu[10])}
+        self.score_s += time.perf_counter() - t
+        return out
+
+
+def f64_near_ties(card: list, cpu: list, score) -> dict:
+    """The card run's rows against the CPU shards' (split_rows, the same
+    reads) by rows_differ, but a row whose only difference is its branch
+    or taxon is judged by its f64 scores, score(card row, CPU row) ->
+    {best_loglik, card_loglik, cpu_loglik, ...} (F64Scores): it passes
+    as an f32 near tie when both branches lie within TIE_ULPS f32 ulps
+    of the f64 best (near_tie).  ok: some rows, every other rule held,
+    every such row a near tie, and no more of them than TIE_SHARE of the
+    rows.  Each row that differs is in differ_rows with both rows'
+    placement columns (branch_id ... Q_taxon) and, when scored, its f64
+    scores, ulp gaps and verdict; each failure is named in fails."""
+    differ = rows_differ(card, cpu)
+    what = dict(d.split(": ", 1) for d in differ)
+    fails = [d for d in differ if not d.endswith(": branch or taxon")]
+    rows, ties = [], []
+    for g, w in zip(card, cpu):
+        if g[0] != w[0] or g[0] not in what:
+            continue
+        r = {"id": g[0], "card": g[10:], "cpu": w[10:]}
+        rows.append(r)
+        if what[g[0]] != "branch or taxon":
+            continue
+        f = r["f64"] = score(g, w)
+        f.update(near_tie(f["best_loglik"], f["card_loglik"],
+                          f["cpu_loglik"]))
+        if f["verdict"] == "near tie":
+            ties.append(g[0])
+        else:
+            fails.append(
+                f"{g[0]}: branch or taxon, {f['verdict']}: f64 card "
+                f"{f['card_branch']} {f['card_loglik']!r}, CPU "
+                f"{f['cpu_branch']} {f['cpu_loglik']!r}, best "
+                f"{f['best_branch']} {f['best_loglik']!r} "
+                f"({f['card_gap_ulps']:.3f}, {f['cpu_gap_ulps']:.3f} ulps)")
+    limit = TIE_SHARE * len(cpu)
+    if len(ties) > limit:
+        fails.append(f"{len(ties)} near ties in {len(cpu)} rows, over "
+                     f"{TIE_SHARE:.0%} ({limit:g})")
+    return {"reads": len(cpu), "agree": len(cpu) - len(differ),
+            "differ": differ, "differ_rows": rows, "near_ties": ties,
+            "near_tie_limit": limit, "fails": fails,
+            "ok": bool(cpu) and not fails}
+
+
+def mesh_tree_cpu(ref: dict, tsv: str, prefix: str) -> dict:
     """The CPU shards' run of the first reads against the card run's
-    rows of the same reads (rows_differ): none may differ, each that
-    does is named, with both rows' placement columns (branch_id ...
-    Q_taxon) under differ_rows."""
+    rows of the same reads (f64_near_ties): the rules of rows_differ,
+    but a row that differs in branch or taxon alone passes when the
+    port's f64 host SEP path, on the DB files at `prefix` (F64Scores,
+    loaded here once, only when such a row exists), scores both
+    branches within TIE_ULPS f32 ulps of its best, and no more than
+    TIE_SHARE of the rows do so.  Before, any such row failed, and the
+    TSV's logliks, within LL_RTOL of ~-8.7e6 at the gg_97 shape (~870
+    nats), passed any flip; now a flip needs an f64 proof that both
+    branches are within ~8 nats there of the f64 optimum."""
     out = {k: v for k, v in ref.items() if k != "tsv"}
     if ref["rc"] != 0:
         return dict(out, ok=False)
     cpu = split_rows(ref["tsv"])
     card = split_rows(tsv)[:len(cpu)]
-    differ = rows_differ(card, cpu)
-    ids = {d.split(":")[0] for d in differ}
-    rows = [{"id": g[0], "card": g[10:], "cpu": w[10:]}
-            for g, w in zip(card, cpu) if g[0] in ids]
-    return dict(out, reads=len(cpu), agree=len(cpu) - len(differ),
-                differ=differ, differ_rows=rows,
-                ok=bool(cpu) and not differ)
+    score = F64Scores(prefix)
+    out.update(f64_near_ties(card, cpu, score))
+    out["f64_load_s"], out["f64_score_s"] = score.load_s, score.score_s
+    return out
 
 
 def one_card_share(tsv: str, one_tsv: str) -> dict:
@@ -777,7 +923,7 @@ def one_card_share(tsv: str, one_tsv: str) -> dict:
         if g is None:
             continue
         seen += 1
-        if "-1" in (g[10], r[10]):
+        if UNPLACED in (g[10], r[10]):
             unplaced_differ += g[10] != r[10]
         else:
             placed += 1
@@ -806,12 +952,16 @@ def run_mesh(args, flag: str, mode: str, inputs: list[str], prefix: str,
     cards with a device peak on each and K2 and K3 launched on each, and
     writes a row a single-end read; --mesh: its rows byte-equal to
     base's (the N = 1 run's); --mesh-tree: each shard's message bytes
-    recorded, and (cpu_ref, the CPU shards' run of its first reads)
-    agreeing with the CPU row for row.  Reported: reads/s (its
-    efficiency: the ratio to base), load, upload, tree_shards and merge
-    seconds, each card's busy ms against the placement's host seconds,
-    K1-K3 a card, and under --mesh-tree the share of rows on base's
-    branch (one_card_share)."""
+    recorded, and (cpu_ref, the CPU shards' run of its first reads) its
+    rows held against the CPU's by mesh_tree_cpu: as rows_differ, but a
+    row that differs in branch or taxon alone passes if the f64 host
+    path scores both branches within TIE_ULPS f32 ulps of its best, on
+    at most TIE_SHARE of the rows (before, none could differ).
+    Reported: reads/s (its efficiency: the ratio to base), load,
+    upload, tree_shards and merge seconds, each card's busy ms against
+    the placement's host seconds, K1-K3 a card, and under --mesh-tree
+    the share of rows on base's branch (one_card_share) and the f64
+    load and score seconds of the CPU check."""
     d = args.work
     tag = f"{mode}_{flag[2:].replace('-', '_')}"
     tsv = os.path.join(d, f"{tag}.tsv")
@@ -873,10 +1023,10 @@ def run_mesh(args, flag: str, mode: str, inputs: list[str], prefix: str,
     if base is not None:
         out["one_card"] = one_card_share(tsv, base["tsv"])
     if cpu_ref is not None:
-        c = out["cpu"] = mesh_tree_cpu(cpu_ref, tsv)
+        c = out["cpu"] = mesh_tree_cpu(cpu_ref, tsv, prefix)
         if not c["ok"]:
             fails.append(f"{tag} rows against the CPU shards': "
-                         f"{c.get('differ')} (rc {c['rc']})")
+                         f"{c.get('fails')} (rc {c['rc']})")
     return out
 
 
@@ -1141,12 +1291,14 @@ def main(argv=None) -> int:
     runs = [r for m in ("se", "pe", "chim") for r in res[m].values()] \
         + [res[k] for k in ("mesh", "mesh_tree_se", "mesh_tree_pe")
            if k in res]
-    res["processes_scanned"] = sum(len(r["procs"]) for r in runs)
+    scanned = [(r["run"], p) for r in runs for p in r["procs"]] \
+        + [(f"{k}_cpu", ref) for k, ref in refs.items()]
+    res["processes_scanned"] = len(scanned)
     res["aborts"] = [
-        {"run": r["run"], "process_id": p["process_id"], "exit": p["exit"],
-         "after_rows": p["abort_after_rows"], "lines": p["abort_lines"]}
-        for r in runs
-        for p in r["procs"] if p["aborted"] or p["abort_after_rows"]]
+        {"run": run, "process_id": p["process_id"], "exit": p["exit"],
+         "after_rows": p["abort_after_rows"], "lines": p["abort_lines"],
+         "stderr_tail": p.get("stderr_tail")}
+        for run, p in scanned if p["aborted"] or p["abort_after_rows"]]
     progress()
     print(json.dumps(res))
     return 1 if res["fails"] else 0

@@ -480,7 +480,8 @@ def test_mesh_tree_harness_runs(mesh_tree_harness, mode, reads):
     agreeing row for row."""
     got, work = mesh_tree_harness
     assert got["fails"] == [] and got["aborts"] == []
-    assert got["processes_scanned"] == 5
+    # five runs and the --mesh-tree CPU reference
+    assert got["processes_scanned"] == 6
     assert got["reduced"]["to"] == (
         "127 nodes; 32 reads, 8 pairs, the first 32 reads and 8 pairs "
         "under --mesh-tree; processes of one host, 1 at most")
@@ -509,6 +510,9 @@ def test_mesh_tree_harness_runs(mesh_tree_harness, mode, reads):
         cpu = r["cpu"]
         assert cpu["ok"] and cpu["reads"] == cpu["agree"] == 32
         assert cpu["differ"] == cpu["differ_rows"] == []
+        assert cpu["near_ties"] == cpu["fails"] == []
+        assert cpu["near_tie_limit"] == 8 and cpu["f64_load_s"] is None
+        assert not cpu["aborted"] and cpu["process_id"] == 0
         assert "tree_shards_s" in cpu["clocks"]
         assert (work / "mt_cpu.tsv").exists()
     else:
@@ -557,26 +561,42 @@ def test_mesh_tree_rows_match_reference_cli(mesh_tree_harness, tmp_path):
     rows_agree(port, tsv_rows(out))
 
 
+@pytest.mark.parametrize("doctor", ["loglik", "far branch"])
 def test_mesh_tree_doctored_cpu_row_fails(scripts_path, mesh_tree_harness,
-                                         tmp_path, monkeypatch, capsys):
-    """One CPU row off by 5 nats in loglik: the harness exits 1 and names
-    the read.  The --mesh-tree run alone (--processes ''), on the
-    fixture's DB files (build_db reuses them)."""
+                                         tmp_path, monkeypatch, capsys,
+                                         doctor):
+    """One CPU row off by 5 nats in loglik, or moved to the branch of the
+    node farthest from its read (its f64 score many ulps below the f64
+    best): the harness exits 1 and names the read, the second with both
+    branches' f64 scores.  The --mesh-tree run alone (--processes ''), on
+    the fixture's DB files (build_db reuses them)."""
     import shutil
     import torch_scale_procs as tsp
+    from hmmufotu_tpu_torch.phylo.tree import PTUnrooted, p_dist
     _, work = mesh_tree_harness
     for f in os.listdir(work):
         if f.startswith("db") or f == "db_shape.json":
             shutil.copy(work / f, tmp_path / f)
+    tree = PTUnrooted.load(str(tmp_path / "db.ptu.npz"))
     build = tsp.build_db
     monkeypatch.setattr(tsp, "build_db",
                         lambda args, d: build(args, d, reuse=True))
     split = tsp.split_rows
+    far = []
 
     def doctored(path):
         rows = split(path)
         if path.endswith("mt_cpu.tsv"):
-            rows[3][15] = str(float(rows[3][15]) + 5.0)
+            r = rows[3]
+            if doctor == "loglik":
+                r[15] = str(float(r[15]) + 5.0)
+            else:
+                seq, start, end = tsp.aligned_read(r)
+                c = max((u for u in range(tree.num_nodes)
+                         if tree.parent[u] >= 0),
+                        key=lambda u: p_dist(tree.seqs[u], seq, start, end))
+                r[10] = f"{c}->{tree.parent[c]}"
+                far.append(r[10])
         return rows
 
     monkeypatch.setattr(tsp, "split_rows", doctored)
@@ -590,14 +610,136 @@ def test_mesh_tree_doctored_cpu_row_fails(scripts_path, mesh_tree_harness,
     assert got["build"]["reused"]
     assert got["fails"] == [got["mesh_tree_se"]["fails"][0]]
     cpu = got["mesh_tree_se"]["cpu"]
-    assert cpu["differ"] == ["r3: loglik"]
     card = tsp.split_rows(str(tmp_path / "se_mesh_tree.tsv"))[3]
     assert [r["id"] for r in cpu["differ_rows"]] == ["r3"]
     assert cpu["differ_rows"][0]["card"] == card[10:]
-    assert float(cpu["differ_rows"][0]["cpu"][5]) == \
-        pytest.approx(float(card[15]) + 5.0, rel=1e-6)
     assert got["mesh_tree_se"]["cpu"]["reads"] == 8
     assert got["se"] == {} and "one_card" not in got["mesh_tree_se"]
+    assert got["processes_scanned"] == 2 and got["aborts"] == []
+    if doctor == "loglik":
+        assert cpu["differ"] == cpu["fails"] == ["r3: loglik"]
+        assert float(cpu["differ_rows"][0]["cpu"][5]) == \
+            pytest.approx(float(card[15]) + 5.0, rel=1e-6)
+        assert "f64" not in cpu["differ_rows"][0]
+        assert cpu["f64_load_s"] is None
+        return
+    assert cpu["differ"] == ["r3: branch or taxon"] and far != [card[10]]
+    f = cpu["differ_rows"][0]["f64"]
+    assert (f["card_branch"], f["cpu_branch"]) == (card[10], far[0])
+    assert f["verdict"] == "not a near tie" and f["cpu_gap_ulps"] > 1000
+    assert f["cpu_loglik"] < f["best_loglik"] and cpu["near_ties"] == []
+    assert cpu["fails"] == [
+        f"r3: branch or taxon, not a near tie: f64 card {card[10]} "
+        f"{f['card_loglik']!r}, CPU {far[0]} {f['cpu_loglik']!r}, best "
+        f"{f['best_branch']} {f['best_loglik']!r} "
+        f"({f['card_gap_ulps']:.3f}, {f['cpu_gap_ulps']:.3f} ulps)"]
+    assert "r3: branch or taxon, not a near tie" in got["fails"][0]
+    assert cpu["f64_load_s"] > 0 and cpu["f64_score_s"] > 0
+
+
+def synth_row(rid, aln="AC", branch="7->9", taxon="3", ll="-100.0"):
+    """A row of an assignment TSV, split into fields."""
+    return [rid, "d"] + ["1"] * 7 + [aln, branch, "0.5", taxon, "t",
+                                     "0.1", ll, "20", "20"]
+
+
+TIE_BEST = -1.0e6
+
+
+FOUR = [f"r{k}" for k in range(0, 32, 4)]      # 8 of 32 rows: 25%
+
+
+@pytest.mark.parametrize("flips, aln, ties, fails", [
+    pytest.param({}, [], [], [], id="equal"),
+    pytest.param({"r5": (0.0, 7.5)}, [], ["r5"], [], id="tie"),
+    pytest.param({"r5": (-7.5, 3.0)}, [], ["r5"], [], id="card-above"),
+    pytest.param({"r5": (0.0, 9.0)}, [], [], ["r5"], id="9-ulps"),
+    pytest.param({"r5": (-9.0, 0.0)}, [], [], ["r5"], id="card-9-above"),
+    pytest.param(dict.fromkeys(FOUR, (0.0, 3.0)), [], FOUR, [],
+                 id="at-limit"),
+    pytest.param(dict.fromkeys(FOUR + ["r1"], (0.0, 3.0)), [],
+                 ["r0", "r1"] + FOUR[1:],
+                 ["9 near ties in 32 rows, over 25% (8)"], id="over-limit"),
+    pytest.param({"r5": (0.0, 0.0)}, ["r5"], [],
+                 ["r5: alignment, branch or taxon"], id="alignment"),
+])
+def test_f64_near_tie_rule(scripts_path, flips, aln, ties, fails):
+    """f64_near_ties on 32 hand-made rows, the card's branch and taxon
+    flipped on `flips` ({id: (card, CPU) gap below the f64 best in f32
+    ulps}) and its alignment changed on `aln`: a flip passes only with
+    both branches within 8 ulps of the best, either way, on at most 25%
+    of the rows; a flip beside another difference fails as that,
+    unscored; a flip that fails is named with both f64 scores."""
+    from torch_scale_procs import f64_near_ties
+    ulp = abs(TIE_BEST) * 2.0 ** -23
+    cpu = [synth_row(f"r{k}") for k in range(32)]
+    card = [synth_row(f"r{k}", aln="A-C" if f"r{k}" in aln else "AC",
+                      branch="8->9" if f"r{k}" in flips else "7->9",
+                      taxon="4" if f"r{k}" in flips else "3")
+            for k in range(32)]
+    asked = []
+
+    def score(g, w):
+        asked.append(g[0])
+        c, p = flips[g[0]]
+        return {"best_branch": "7->9", "best_loglik": TIE_BEST,
+                "card_branch": g[10], "cpu_branch": w[10],
+                "card_loglik": TIE_BEST - c * ulp,
+                "cpu_loglik": TIE_BEST - p * ulp}
+
+    got = f64_near_ties(card, cpu, score)
+    assert got["ok"] is (not fails) and got["reads"] == 32
+    assert got["agree"] == 32 - len(flips)
+    scored = [] if aln else sorted(flips, key=lambda r: int(r[1:]))
+    assert asked == scored and got["near_ties"] == ties
+    assert [r["id"] for r in got["differ_rows"]] == sorted(
+        flips, key=lambda r: int(r[1:]))
+    for r in got["differ_rows"]:
+        assert ("f64" in r) is (r["id"] in scored)
+        assert r["card"][0] == "8->9" and r["cpu"][0] == "7->9"
+    if fails != ["r5"]:
+        assert got["fails"] == fails
+        for r in got["differ_rows"]:
+            assert r["id"] in aln or r["f64"]["verdict"] == "near tie"
+        return
+    f = got["differ_rows"][0]["f64"]
+    c, p = flips["r5"]
+    assert f["verdict"] == "not a near tie" and f["ulp"] == ulp
+    assert (f["card_gap_ulps"], f["cpu_gap_ulps"]) == \
+        (pytest.approx(c), pytest.approx(p))
+    assert got["fails"] == [
+        f"r5: branch or taxon, not a near tie: f64 card 8->9 "
+        f"{f['card_loglik']!r}, CPU 7->9 {f['cpu_loglik']!r}, best "
+        f"7->9 {TIE_BEST!r} ({c:.3f}, {p:.3f} ulps)"]
+
+
+def test_f64_score_of_host_best(scripts_path, mesh_tree_harness):
+    """On the fixture's DB files and the CPU shards' rows of its first 32
+    reads: F64Scores' best and its score of assign_read's own branch are
+    assign_read's loglik, exactly; a row scored against itself gives
+    both sides one score."""
+    from types import SimpleNamespace
+    from hmmufotu_tpu_torch import pipeline as pl
+    from torch_scale_procs import (F64Scores, aligned_read, near_tie,
+                                   split_rows)
+    _, work = mesh_tree_harness
+    score = F64Scores(str(work / "db"))
+    rows = split_rows(str(work / "mt_cpu.tsv"))
+    assert len(rows) == 32
+    got = score(rows[0], rows[0])
+    assert score.load_s > 0 and score.score_s > 0
+    assert got["card_loglik"] == got["cpu_loglik"] <= got["best_loglik"]
+    assert got["card_branch"] == got["cpu_branch"] == rows[0][10]
+    gaps = near_tie(got["best_loglik"], got["card_loglik"],
+                    got["cpu_loglik"])
+    assert gaps["card_gap_ulps"] == gaps["cpu_gap_ulps"] >= 0
+    for r in rows:
+        seq, start, end = aligned_read(r)
+        best = pl.assign_read(
+            score.tree, SimpleNamespace(cs_start=start + 1, cs_end=end + 1),
+            seq)
+        assert score.branch(seq, start, end, best.get_id()) == best.loglik
+        assert score.best(seq, start, end).loglik == best.loglik
 
 
 def test_rows_differ(scripts_path):
@@ -609,7 +751,8 @@ def test_rows_differ(scripts_path):
         return [rid, "d"] + ["1"] * 7 + [aln, branch, "0.5", taxon, "t",
                                          "0.1", ll, "20", "20"]
 
-    want = [row("r0"), row("r1"), row("r2", branch="-1", ll="nan")]
+    # an unplaced read's row: branch NULL, loglik nan (place_tsv)
+    want = [row("r0"), row("r1"), row("r2", branch="NULL", ll="nan")]
     assert rows_differ([list(r) for r in want], want) == []
     # within 1e-4 relative or 0.5
     assert rows_differ([row("r0", ll="-100.4"), row("r1"), want[2]],
@@ -637,10 +780,10 @@ def test_one_card_share(scripts_path, tmp_path):
     head = "# x\nid\tdescription\n"
     one, mt = tmp_path / "one.tsv", tmp_path / "mt.tsv"
     one.write_text(head + row("r0", "5", "-10") + row("r1", "6", "-20")
-                   + row("r2", "7", "-30") + row("r3", "-1", "nan")
+                   + row("r2", "7", "-30") + row("r3", "NULL", "nan")
                    + row("r4", "9", "-50"))
     mt.write_text(head + row("r0", "5", "-10") + row("r1", "4", "-23")
-                  + row("r2", "8", "-29") + row("r3", "-1", "nan"))
+                  + row("r2", "8", "-29") + row("r3", "NULL", "nan"))
     got = one_card_share(str(mt), str(one))
     assert got == {"rows": 4, "matched": 4, "placed": 3, "same_branch": 1,
                    "share": 1 / 3, "other_branch": 2, "unplaced_differ": 0,
