@@ -720,8 +720,8 @@ def check_k4(db, reads):
     from hmmufotu_tpu_torch.hmm.viterbi import MAX_REGIONS, traceback_packed
     al = ViterbiAligner(db.hmm, device="cuda")
     vp = pl.batch_find_seed_vpaths(db.hmm, db.csfm, reads, mode=NGCL)
-    _, n_rows, codes, lengths, regions, _, comb = al.dispatch_batch(reads,
-                                                                    vp)
+    _, n_rows, codes, lengths, regions, _, _, comb = al.dispatch_batch(
+        reads, vp)
     K = db.hmm.K
     tc, em, scal = al.staged
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()

@@ -31,6 +31,7 @@ from ..phylo import PTPlacement
 from ..phylo.tree import (PLACEMENT_TSV_HEADER, UNASSIGNED_ID,
                           UNASSIGNED_TAXONID, UNASSIGNED_TAXONNAME, p_dist)
 from ..seq import PrimarySeq, SeqWriter, read_seqs
+from ..utils import trace
 from .. import pipeline as pl
 
 log = logging.getLogger(__name__)
@@ -413,6 +414,8 @@ def main(argv=None, device="cuda") -> int:
                                     fwd_reads, rev_reads, mode, rng, out,
                                     chi_out, aln_out, mesh)
         log.info("Assigned %d of %d reads", n_assigned, len(fwd_reads))
+        if trace.ON:
+            log_trace(placer)
     finally:
         for f in (chi_out, aln_out):
             if f:
@@ -422,6 +425,17 @@ def main(argv=None, device="cuda") -> int:
     if multihost:
         write_gathered(args, out.getvalue(), mode_out)
     return 0
+
+
+def log_trace(placer) -> None:
+    """With the tracer on (HMMUFOTU_TIMING=1): its one-line summary at
+    -v, and a warning where the placer cut reads to its window."""
+    log.debug("%s", trace.summary())
+    clamped = trace.counts().get("window_clamped", 0)
+    if clamped:
+        log.warning("%d reads span more than the placer's window of %d "
+                    "CS columns; each was placed over its first %d",
+                    clamped, placer.W, placer.W)
 
 
 def write_gathered(args, text: str, mode_out: str) -> None:
@@ -479,102 +493,103 @@ def batch_loop(args, aligner, csfm, tree, placer, fwd_reads, rev_reads,
     paired = bool(rev_reads)
     n_assigned = 0
     for lo in range(0, len(fwd_reads), args.batch):
-        batch = fwd_reads[lo:lo + args.batch]
-        alns = pl.align_reads(aligner, csfm, [r.seq for r in batch],
-                              args.seed_len, args.seed_region, mode, rng)
-        rev_alns = [None] * len(batch)
-        if paired:
-            mates = [DNA.revcom(r.seq)
-                     for r in rev_reads[lo:lo + args.batch]]
-            rev_alns = pl.align_reads(aligner, csfm, mates,
-                                      args.seed_len, args.seed_region,
-                                      mode, rng)
-        # orientation / merge pass
-        chim_flags = [False] * len(batch)
-        for t, (read, aln, rev_aln) in enumerate(
-                zip(batch, alns, rev_alns)):
-            if paired and rev_aln is not None:
-                if not args.ignore_orient and not (
-                        aln.cs_start <= rev_aln.cs_start
-                        and aln.cs_end <= rev_aln.cs_end):
-                    log.warning("Bad orientation of fwd/rev read %s, "
-                                "treating as chimera", read.id)
-                    chim_flags[t] = True
-                else:
-                    aln.merge(rev_aln)
-
-        # batched device placement when no chimera check places on the
-        # host
-        best_batch = [None] * len(batch)
-        if not args.align_only and not args.chimera:
-            place_alns = [HmmAlignment() if chim_flags[t] else aln
-                          for t, aln in enumerate(alns)]
-            if args.mesh_tree:
-                best_batch = pl.assign_batch_device_tree(
-                    tree, placer, place_alns, mesh, args.max_diff,
-                    args.max_height, args.err, args.prior, args.ml_only)
-            else:
-                best_batch = pl.assign_batch_device(
-                    tree, placer, place_alns, args.max_diff,
-                    args.max_height, args.err, args.prior, args.ml_only,
-                    mesh=mesh)
-
-        for t, (read, aln) in enumerate(zip(batch, alns)):
-            is_chimera = chim_flags[t]
-            seq = None
-            seeds = []
-            if args.chimera and not is_chimera:
-                seq = pl.aln_to_digital(tree, aln)
-                seeds = pl.get_seed(tree, seq, aln.cs_start - 1,
-                                    aln.cs_end - 1, args.max_diff,
-                                    args.max_height, args.max_nseed)
-            lod = math.nan
-            b5 = b3 = None
-            if args.chimera and not is_chimera and seeds:
-                is_chimera, lod, b5, b3 = check_chimera(
-                    tree, aln, seq, seeds, args)
-            chim_str = ""
-            if args.chimera:
-                if b5 is not None:
-                    chim_str = (f"\t{b5.a_node}\t{b3.a_node}\t"
-                                f"{tree.anno[b5.a_node]}\t"
-                                f"{tree.anno[b3.a_node]}\t{lod:g}")
-                else:
-                    chim_str = "\tnan\tnan\tnan\tnan\tnan"
-
-            if is_chimera:
-                if chi_out:
-                    chi_out.write(f"{read.id}\t{read.desc}\t"
-                                  + aln_tsv(aln) + chim_str + "\t"
-                                  + place_tsv(tree, None) + "\n")
-                continue
-            if aln_out:
-                aln_out.write(aligned_record(read, aln))
-            best = None
-            if not args.align_only:
-                if args.chimera and seeds:
-                    # chimera mode already has host seeds; finish the
-                    # host SEP path with them
-                    places = pl.estimate_seq(tree, seq, seeds,
-                                             args.method)
-                    places = pl.filter_placements(places, args.err)
-                    places = pl.place_seq(tree, seq, places,
-                                          args.max_height)
-                    if args.ml_only:
-                        places.sort(key=lambda p: -p.loglik)
+        with trace.span("batch", batch=lo // args.batch):
+            batch = fwd_reads[lo:lo + args.batch]
+            alns = pl.align_reads(aligner, csfm, [r.seq for r in batch],
+                                  args.seed_len, args.seed_region, mode, rng)
+            rev_alns = [None] * len(batch)
+            if paired:
+                mates = [DNA.revcom(r.seq)
+                         for r in rev_reads[lo:lo + args.batch]]
+                rev_alns = pl.align_reads(aligner, csfm, mates,
+                                          args.seed_len, args.seed_region,
+                                          mode, rng)
+            # orientation / merge pass
+            chim_flags = [False] * len(batch)
+            for t, (read, aln, rev_aln) in enumerate(
+                    zip(batch, alns, rev_alns)):
+                if paired and rev_aln is not None:
+                    if not args.ignore_orient and not (
+                            aln.cs_start <= rev_aln.cs_start
+                            and aln.cs_end <= rev_aln.cs_end):
+                        log.warning("Bad orientation of fwd/rev read %s, "
+                                    "treating as chimera", read.id)
+                        chim_flags[t] = True
                     else:
-                        pl.calc_q_values(tree, places, args.prior)
-                        places.sort(key=lambda p: -p.q_place)
-                    best = places[0]
-                elif not args.chimera:
-                    best = best_batch[t]
-                if best is not None:
-                    n_assigned += 1
-            out.write(f"{read.id}\t{read.desc}\t" + aln_tsv(aln)
-                      + chim_str + "\t" + place_tsv(tree, best) + "\n")
-        out.flush()
-        log.info("Processed %d reads", min(lo + args.batch,
-                                           len(fwd_reads)))
+                        aln.merge(rev_aln)
+
+            # batched device placement when no chimera check places on the
+            # host
+            best_batch = [None] * len(batch)
+            if not args.align_only and not args.chimera:
+                place_alns = [HmmAlignment() if chim_flags[t] else aln
+                              for t, aln in enumerate(alns)]
+                if args.mesh_tree:
+                    best_batch = pl.assign_batch_device_tree(
+                        tree, placer, place_alns, mesh, args.max_diff,
+                        args.max_height, args.err, args.prior, args.ml_only)
+                else:
+                    best_batch = pl.assign_batch_device(
+                        tree, placer, place_alns, args.max_diff,
+                        args.max_height, args.err, args.prior, args.ml_only,
+                        mesh=mesh)
+
+            for t, (read, aln) in enumerate(zip(batch, alns)):
+                is_chimera = chim_flags[t]
+                seq = None
+                seeds = []
+                if args.chimera and not is_chimera:
+                    seq = pl.aln_to_digital(tree, aln)
+                    seeds = pl.get_seed(tree, seq, aln.cs_start - 1,
+                                        aln.cs_end - 1, args.max_diff,
+                                        args.max_height, args.max_nseed)
+                lod = math.nan
+                b5 = b3 = None
+                if args.chimera and not is_chimera and seeds:
+                    is_chimera, lod, b5, b3 = check_chimera(
+                        tree, aln, seq, seeds, args)
+                chim_str = ""
+                if args.chimera:
+                    if b5 is not None:
+                        chim_str = (f"\t{b5.a_node}\t{b3.a_node}\t"
+                                    f"{tree.anno[b5.a_node]}\t"
+                                    f"{tree.anno[b3.a_node]}\t{lod:g}")
+                    else:
+                        chim_str = "\tnan\tnan\tnan\tnan\tnan"
+
+                if is_chimera:
+                    if chi_out:
+                        chi_out.write(f"{read.id}\t{read.desc}\t"
+                                      + aln_tsv(aln) + chim_str + "\t"
+                                      + place_tsv(tree, None) + "\n")
+                    continue
+                if aln_out:
+                    aln_out.write(aligned_record(read, aln))
+                best = None
+                if not args.align_only:
+                    if args.chimera and seeds:
+                        # chimera mode already has host seeds; finish the
+                        # host SEP path with them
+                        places = pl.estimate_seq(tree, seq, seeds,
+                                                 args.method)
+                        places = pl.filter_placements(places, args.err)
+                        places = pl.place_seq(tree, seq, places,
+                                              args.max_height)
+                        if args.ml_only:
+                            places.sort(key=lambda p: -p.loglik)
+                        else:
+                            pl.calc_q_values(tree, places, args.prior)
+                            places.sort(key=lambda p: -p.q_place)
+                        best = places[0]
+                    elif not args.chimera:
+                        best = best_batch[t]
+                    if best is not None:
+                        n_assigned += 1
+                out.write(f"{read.id}\t{read.desc}\t" + aln_tsv(aln)
+                          + chim_str + "\t" + place_tsv(tree, best) + "\n")
+            out.flush()
+            log.info("Processed %d reads", min(lo + args.batch,
+                                               len(fwd_reads)))
     return n_assigned
 
 

@@ -23,38 +23,59 @@ are the same recurrence.
 
 from __future__ import annotations
 
-import os
-import time
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .._cuda import resolve_device
+from ..utils import trace
 from .profile import (HmmAlignment, K_MIN_GAP_FRAC, ProfileHMM,
                       ViterbiAlignPath, build_global_align,
                       build_global_align_path)
 
 INF = float("inf")
 PAD_STATE = 5                        # traceback pad state code
-# seconds of the aligner's stages by key, summed while HMMUFOTU_TIMING is
-# set (the reference package's TIMING): dp_dispatch, dp, scalars_dl, and
-# trace_dl + host_build (K1) or choices_dl + unpack + host_trace (K4)
-TIMING = {}
 
 
-def _tick(key, t0):
-    if os.environ.get("HMMUFOTU_TIMING"):
-        TIMING[key] = TIMING.get(key, 0.0) + (time.time() - t0)
-    return time.time()
+class _Timing(dict):
+    """Seconds of the aligner's stages by key (the reference package's
+    TIMING), filled from the tracer's spans of those names while it is
+    on (utils.trace, HMMUFOTU_TIMING=1): dp_dispatch, dp, scalars_dl, and
+    trace_dl + host_build (K1) or choices_dl + unpack + host_trace (K4).
+    clear() also starts a new timing: it turns the tracer on or off as
+    HMMUFOTU_TIMING then reads."""
+
+    def clear(self):
+        super().clear()
+        trace.enable()
 
 
-def _wait_if_timing(t: torch.Tensor):
-    """Wait for the device work behind t, only while the stage clocks run:
-    the download after it waits anyway, and the clocks need the wait to
-    part the DP ("dp") from the download ("scalars_dl")."""
-    if os.environ.get("HMMUFOTU_TIMING") and t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+TIMING = _Timing()
+
+
+def _stage(key):
+    """The aligner's stage `key` as a tracer span that adds into TIMING."""
+    return trace.span(key, sink=TIMING)
+
+
+def _done_event(device):
+    """A CUDA event recorded after the work just enqueued, while the
+    tracer is on (None otherwise, and on the CPU)."""
+    if not trace.ON or device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _wait_if_timing(ev):
+    """Wait for the event of _done_event: the DP's own result, so that
+    the "dp" stage parts the wait for the kernel from the download
+    ("scalars_dl") without waiting for the work queued after it."""
+    if ev is not None:
+        ev.synchronize()
 
 # region tuple layout: (j_lo, j_hi, i_lo, i_hi, entry_ok, diag, lo_d, hi_d)
 REGION_WIDTH = 8
@@ -512,19 +533,21 @@ class ViterbiAligner:
         n_rows = max_len or max((len(s) for s in seqs), default=1)
         if self.kernel == "cuda":
             n_rows = (n_rows + PACK_ROWS - 1) // PACK_ROWS * PACK_ROWS
-        codes, lengths, regions = self._encode(seqs, vpaths_per_read,
-                                               n_rows)
-        t = time.time()
-        if not B:
-            res = None
-        elif self.traced:
-            res = viterbi_traced_split(self.staged, self.hmm.K, codes,
-                                       lengths, regions, n_rows)
-        else:
-            res = self._run_dp(codes, lengths, regions, n_rows)
-        _tick("dp_dispatch", t)
+        with trace.span("encode"):
+            codes, lengths, regions = self._encode(seqs, vpaths_per_read,
+                                                   n_rows)
+        with _stage("dp_dispatch"):
+            if not B:
+                res = None
+            elif self.traced:
+                res = viterbi_traced_split(self.staged, self.hmm.K, codes,
+                                           lengths, regions, n_rows)
+            else:
+                res = self._run_dp(codes, lengths, regions, n_rows)
+            done = _done_event(self.device) if B else None
+        trace.count("aln_reads", B)
         return (list(seqs), n_rows, codes, lengths, regions,
-                vpaths_per_read, res)
+                vpaths_per_read, done, res)
 
     def finalize_batch(self, handle) -> list[HmmAlignment]:
         """Download a dispatched batch's result, re-run banded failures
@@ -539,18 +562,18 @@ class ViterbiAligner:
         from .cuda_viterbi import (PAD_NIBBLE, PAD_WORD, unpack_emits,
                                    viterbi_traced_split)
         hmm = self.hmm
-        seqs, n_rows, codes, lengths, regions, vpaths_per_read, comb = \
-            handle
+        (seqs, n_rows, codes, lengths, regions, vpaths_per_read, done,
+         comb) = handle
         B = len(seqs)
-        t = time.time()
-        _wait_if_timing(comb)
-        t = _tick("dp", t)
-        comb_h = comb.cpu().numpy()
-        _tick("scalars_dl", t)
+        with _stage("dp"):
+            _wait_if_timing(done)
+        with _stage("scalars_dl"):
+            comb_h = comb.cpu().numpy()
         score_h = comb_h[:, 0].view(np.float32)
         # banded failures -> full DP rerun of those rows, merged on the
         # host (the rerun's comb may be wider: pad both to one layout)
         failed = _banded_failures(score_h, vpaths_per_read)
+        trace.count("band_fail", int(failed.sum()))
         if failed.any():
             rows = np.nonzero(failed)[0]
             regions2 = np.stack([full_dp_regions(n_rows, hmm.K)] *
@@ -567,39 +590,40 @@ class ViterbiAligner:
 
             comb_h = _padw(comb_h)
             comb_h[rows] = _padw(comb2_h)
-        t = time.time()
-        sb_h = comb_h[:, :8].view(np.float32)
-        score_h = sb_h[:, 0]
-        emits = unpack_emits(comb_h[:, 8:])
-        bounds = sb_h[:, 3:7].astype(np.int32)
-        t = _tick("trace_dl", t)
+        with _stage("trace_dl"):
+            sb_h = comb_h[:, :8].view(np.float32)
+            score_h = sb_h[:, 0]
+            emits = unpack_emits(comb_h[:, 8:])
+            bounds = sb_h[:, 3:7].astype(np.int32)
         alns: list[HmmAlignment] = []
-        for r in range(B):
-            if not np.isfinite(score_h[r]):
-                alns.append(HmmAlignment())
-                continue
-            path = emits[r][emits[r] != PAD_NIBBLE][::-1]   # forward
-            if path.size and path[0] == 0:
-                path = path[1:]                             # implied B
-            alns.append(build_global_align_path(
-                hmm, seqs[r], path, int(bounds[r, 0]), int(bounds[r, 1]),
-                int(bounds[r, 2]), int(bounds[r, 3]), float(score_h[r])))
-        _tick("host_build", t)
+        with _stage("host_build"):
+            for r in range(B):
+                if not np.isfinite(score_h[r]):
+                    alns.append(HmmAlignment())
+                    continue
+                path = emits[r][emits[r] != PAD_NIBBLE][::-1]   # forward
+                if path.size and path[0] == 0:
+                    path = path[1:]                             # implied B
+                alns.append(build_global_align_path(
+                    hmm, seqs[r], path, int(bounds[r, 0]),
+                    int(bounds[r, 1]), int(bounds[r, 2]), int(bounds[r, 3]),
+                    float(score_h[r])))
         return alns
 
     def _finalize_planes(self, handle) -> list[HmmAlignment]:
         hmm = self.hmm
-        seqs, n_rows, codes, lengths, regions, vpaths_per_read, res = handle
+        (seqs, n_rows, codes, lengths, regions, vpaths_per_read, done,
+         res) = handle
         score, mi, mj, choices = res
         B = len(seqs)
-        t = time.time()
-        _wait_if_timing(score)
-        t = _tick("dp", t)
-        score_h = score.cpu().numpy()
-        _tick("scalars_dl", t)
+        with _stage("dp"):
+            _wait_if_timing(done)
+        with _stage("scalars_dl"):
+            score_h = score.cpu().numpy()
         # banded failures -> full DP rerun of those rows, written over
         # the first pass's rows on the device
         failed = _banded_failures(score_h, vpaths_per_read)
+        trace.count("band_fail", int(failed.sum()))
         if failed.any():
             rows = np.nonzero(failed)[0]
             regions2 = np.stack([full_dp_regions(n_rows, hmm.K)] *
@@ -631,11 +655,10 @@ class ViterbiAligner:
                 return (trace + "E", int(a_start[r]), int(a_end[r]),
                         int(a_from[r]), int(a_to[r]))
         elif host_k4:
-            t = time.time()
-            packed_h = choices.cpu().numpy()
-            t = _tick("choices_dl", t)
-            mi_h, mj_h = mi.cpu().numpy(), mj.cpu().numpy()
-            t = _tick("unpack", t)
+            with _stage("choices_dl"):
+                packed_h = choices.cpu().numpy()
+            with _stage("unpack"):
+                mi_h, mj_h = mi.cpu().numpy(), mj.cpu().numpy()
 
             def walk(r):
                 return traceback_packed(packed_h, r, int(mi_h[r]),
@@ -650,12 +673,11 @@ class ViterbiAligner:
                                  hmm.K)
 
         alns: list[HmmAlignment] = []
-        for r in range(B):
-            if not np.isfinite(score_h[r]):
-                alns.append(HmmAlignment())
-                continue
-            alns.append(build_global_align(hmm, seqs[r], *walk(r),
-                                           float(score_h[r])))
-        if host_k4:
-            _tick("host_trace", t)
+        with _stage("host_trace") if host_k4 else contextlib.nullcontext():
+            for r in range(B):
+                if not np.isfinite(score_h[r]):
+                    alns.append(HmmAlignment())
+                    continue
+                alns.append(build_global_align(hmm, seqs[r], *walk(r),
+                                               float(score_h[r])))
         return alns

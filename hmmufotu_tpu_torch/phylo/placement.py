@@ -31,6 +31,7 @@ import torch
 
 from .._cuda import resolve_device
 from .cuda_place import SAT_P, _finite_guard
+from ..utils import trace
 from .tree import BRANCH_EPS, MAX_ITER, PTUnrooted
 
 INF = float("inf")
@@ -670,7 +671,12 @@ class DevicePlacer:
                      height_prior: bool = False,
                      ml_only: bool = False) -> dict:
         """Enqueue placement of pre-sliced [B, W] windows; returns the
-        dict of device tensors without waiting for the device."""
+        dict of device tensors without waiting for the device.  A read
+        whose CS span is wider than W is placed over its first W columns
+        (counted as window_clamped while the tracer is on)."""
+        if trace.ON:
+            trace.count("window_clamped", int(np.count_nonzero(
+                np.asarray(ends) > np.asarray(starts) + self.W - 1)))
         ends = np.minimum(ends, starts + self.W - 1)
         if self.site_window is not None:
             sc = np.minimum(np.asarray(starts, np.int64),

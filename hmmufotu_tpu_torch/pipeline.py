@@ -23,6 +23,7 @@ from .hmm import (GLOBAL, HmmAlignment, ProfileHMM, ViterbiAligner,
 from .index import CSFMIndex
 from .phylo import PTLoc, PTPlacement, PTUnrooted
 from .phylo.tree import MAX_Q
+from .utils import trace
 
 DEFAULT_SEED_LEN = 20       # hmmufotu.cpp:45
 DEFAULT_SEED_REGION = 50    # hmmufotu.cpp:48
@@ -142,7 +143,19 @@ def batch_find_seed_vpaths(hmm: ProfileHMM, csfm: CSFMIndex,
     would pick (HmmUFOtu_main.cpp:52-84).  Window emission, hit
     selection and RNG draws are fully vectorized; random draws happen
     in read order (one per hit read per side), so seeded runs stay
-    byte-identical to the per-read scan."""
+    byte-identical to the per-read scan.  Traced as span "seed", with
+    counters seed_reads and seed_miss (reads with no valid seed path on
+    either side, which get a full DP)."""
+    with trace.span("seed"):
+        out = _seed_search(hmm, csfm, reads, seed_len, seed_region, mode,
+                           rng)
+    if trace.ON:
+        trace.count("seed_reads", len(out))
+        trace.count("seed_miss", sum(1 for v in out if not v))
+    return out
+
+
+def _seed_search(hmm, csfm, reads, seed_len, seed_region, mode, rng):
     B = len(reads)
     out: list[list[ViterbiAlignPath]] = [[] for _ in range(B)]
     if B == 0:
@@ -496,8 +509,9 @@ def _aln_windows(tree: PTUnrooted, placer, alns):
 def _collect_placements(summary, valid, starts, ends):
     """Materialize a [B, 12] placement summary (tensor or numpy) into
     per-read PTPlacement rows."""
-    s = summary.cpu().numpy() if hasattr(summary, "cpu") \
-        else np.asarray(summary)
+    with trace.span("place_wait"):
+        s = summary.cpu().numpy() if hasattr(summary, "cpu") \
+            else np.asarray(summary)
     results: list[PTPlacement | None] = []
     for r in range(len(valid)):
         if not valid[r] or s[r, 11] == 0:
@@ -586,35 +600,51 @@ def assign_stream(aligner: ViterbiAligner, csfm: CSFMIndex,
     the next.
 
     Yields (alignments, best_placements) per batch, in order.
+
+    Traced (utils.trace): the worker's "dispatch" of batch k; on the
+    main thread a "batch" span for batch k holding "wait_seed" (the wait
+    for the worker), the aligner's stages, "place_dispatch" and the
+    "place_collect" of batch k-1.  No span is open across a yield.
     """
     from concurrent.futures import ThreadPoolExecutor
 
     batches = [reads[lo:lo + batch_size]
                for lo in range(0, len(reads), batch_size)]
 
-    def dispatch(batch):
-        vp = batch_find_seed_vpaths(aligner.hmm, csfm, batch,
-                                    seed_len, seed_region, mode, rng)
-        return aligner.dispatch_batch(batch, vp)
+    def dispatch(k):
+        with trace.span("dispatch", batch=k):
+            vp = batch_find_seed_vpaths(aligner.hmm, csfm, batches[k],
+                                        seed_len, seed_region, mode, rng)
+            return aligner.dispatch_batch(batches[k], vp)
+
+    def collect(k, handle):
+        with trace.span("place_collect", batch=k):
+            return collect_place_batch(handle)
 
     if not batches:
         return
     with ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(dispatch, batches[0])
+        fut = ex.submit(dispatch, 0)
         prev = None  # (alns, undecoded placement handle) of batch k-1
         for k in range(len(batches)):
-            pending = fut.result()
-            fut = ex.submit(dispatch, batches[k + 1]) \
-                if k + 1 < len(batches) else None
-            alns = aligner.finalize_batch(pending)
-            handle = dispatch_place_batch(tree, placer, alns, max_diff,
-                                          max_height, max_error,
-                                          prior_type, ml_only)
-            if prev is not None:
-                yield prev[0], collect_place_batch(prev[1])
+            with trace.span("batch", batch=k):
+                with trace.span("wait_seed"):
+                    pending = fut.result()
+                fut = ex.submit(dispatch, k + 1) \
+                    if k + 1 < len(batches) else None
+                alns = aligner.finalize_batch(pending)
+                with trace.span("place_dispatch"):
+                    handle = dispatch_place_batch(tree, placer, alns,
+                                                  max_diff, max_height,
+                                                  max_error, prior_type,
+                                                  ml_only)
+                done = None if prev is None else (
+                    prev[0], collect(k - 1, prev[1]))
+            if done is not None:
+                yield done
             prev = (alns, handle)
         if prev is not None:
-            yield prev[0], collect_place_batch(prev[1])
+            yield prev[0], collect(len(batches) - 1, prev[1])
 
 
 def merge_mp_candidates(tree: PTUnrooted, union: dict, valid, starts,

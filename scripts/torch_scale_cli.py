@@ -448,9 +448,11 @@ def child(spec: dict) -> int:
         from hmmufotu_tpu_torch.db import Database
         from hmmufotu_tpu_torch.phylo.placement import DevicePlacer
         main = assign.main
-        # the aligner's stage clocks (hmm.viterbi.TIMING); their one
-        # device wait stands just before a download that waits anyway
+        # the aligner's stage clocks (hmm.viterbi.TIMING), filled by the
+        # tracer HMMUFOTU_TIMING turns on; clear() takes the switch up
         os.environ["HMMUFOTU_TIMING"] = "1"
+        import hmmufotu_tpu_torch.hmm.viterbi as viterbi
+        viterbi.TIMING.clear()
         clock(Database, "load", clocks, "load_s",
               keep=lambda db: held.setdefault("db", db))
         clock(DevicePlacer, "__init__", clocks, "upload_s", sync=sync)
